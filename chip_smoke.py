@@ -1,0 +1,456 @@
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+1. device  — a CUDA device is required (there is no CPU path); prints the
+             card's name and power limit;
+2. build   — compiles every kernel from ``cut_detection_tpu_torch/csrc``
+             with nvcc and prints the build time and ptxas report;
+3. kernels — each kernel against its plain PyTorch version on the card at
+             the main path's shapes (batch 128, seeded numpy inputs), with
+             the max error, the tolerance and the median times;
+4. slice   — the prod classifier over a seeded synthetic stream of
+             144x256 frames through the pipeline's device loop, on the
+             card and on the CPU (plain versions): identical classes and
+             CSV bytes, confidences within 1e-4, and the kernels'
+             launch counts over that run;
+5. host    — where the slice loop's time per batch goes: the loop's
+             frames/s, each of its pieces timed alone, and the card's
+             busy share read from a ``torch.profiler`` trace of the loop;
+6. golden  — when a decoder exists (cv2 or the native decoder), the
+             ``segment_video`` CLI's ``main`` on the committed golden
+             clips, compared byte for byte with the reference CSVs, with
+             its kernel launches counted.
+
+Then one JSON line with every kernel's numbers, and last the result line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+BATCH = 128
+F32_TOL = 1e-4          # f32 kernel vs plain: summation order only
+CONF_TOL = 1e-4         # slice confidences, card vs CPU
+BF16_RTOL = 2.0 ** -7   # one bf16 ulp of the pooled activation
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the card, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this smoke test runs only on "
+                           "the GPU")
+    from cut_detection_tpu_torch.utils.device import card_info, strict_fp32
+
+    strict_fp32()
+    card = card_info()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+    return card
+
+
+def phase_build():
+    from cut_detection_tpu_torch.ops.kernels import _build
+
+    # Compile csrc/ in this run even where an earlier run left a current
+    # library behind.
+    t0 = time.perf_counter()
+    path = _build.rebuild()
+    _build.library()
+    log(f"build: nvcc {_build.BuildInfo.seconds:.2f} s, build + load "
+        f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, ROOT)}")
+    for line in _build.BuildInfo.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+def _bn(rng, cout):
+    gamma = rng.normal(1, 0.1, cout)
+    beta = rng.normal(0, 0.1, cout)
+    mean = rng.normal(0, 0.5, cout)
+    var = rng.uniform(0.5, 2, cout)
+    s = gamma / np.sqrt(var + 1e-5)
+    return s.astype(np.float32), (beta - mean * s).astype(np.float32)
+
+
+def phase_kernels(dev):
+    from cut_detection_tpu_torch.models.assembly import (
+        fold_preprocess,
+        load_default_net,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+        conv1_block,
+        conv1_block_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv_block import (
+        conv_block,
+        conv_block_plain,
+    )
+
+    rng = np.random.default_rng(0)
+    net, _ = load_default_net(dev)
+    folded = fold_preprocess(net.state_dict())
+    layer1 = net.conv.conv_layers[0]
+    kernel1 = (folded["conv.conv_layers.0.conv.weight"]
+               .permute(2, 3, 1, 0).contiguous())
+    _, bias1, s1, t1 = layer1.kernel_args()
+    results = {}
+
+    def record(name, shape, err, tol, ok, ms, plain_ms):
+        log(f"kernel {name} {shape}: max_abs_err {err:.3e} ({tol}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} at {shape} disagrees with its "
+                                 f"plain version beyond {tol}")
+        return err, ms, plain_ms
+
+    def record_f32(name, shape, got, ref, fn, plain_fn):
+        err = (got - ref).abs().max().item()
+        return record(name, shape, err, f"tol {F32_TOL:.0e}",
+                      err <= F32_TOL, cuda_ms(fn), cuda_ms(plain_fn))
+
+    for h, w in ((144, 256), (143, 256)):
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, h, w, 3),
+                                          dtype=np.uint8)).to(dev)
+        args = (x, kernel1, bias1, s1, t1)
+        got = conv1_block(*args)
+        ref = conv1_block_plain(*args)
+        torch.cuda.synchronize()
+        out = record_f32("conv1_block", (BATCH, h, w, 3), got, ref,
+                         lambda: conv1_block(*args),
+                         lambda: conv1_block_plain(*args))
+        if h == 144:
+            results["conv1_block"] = out
+
+    for h, w in ((48, 85), (16, 28)):
+        cin = cout = 48
+        x = torch.from_numpy(rng.normal(0, 1, (BATCH, h, w, cin))
+                             .astype(np.float32)).to(dev)
+        k = torch.from_numpy(rng.normal(0, 0.1, (3, 3, cin, cout))
+                             .astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(0, 0.1, cout)
+                                .astype(np.float32)).to(dev)
+        s, t = (torch.from_numpy(a).to(dev) for a in _bn(rng, cout))
+        args = (x, k, bias, s, t)
+        got = conv_block(*args)
+        ref = conv_block_plain(*args)
+        torch.cuda.synchronize()
+        out = record_f32("conv_block f32", (BATCH, h, w, cin), got, ref,
+                         lambda: conv_block(*args),
+                         lambda: conv_block_plain(*args))
+        if h == 48:
+            results["conv_block"] = out
+
+        bargs = (x.to(torch.bfloat16), k.to(torch.bfloat16), bias, s, t)
+        got = conv_block(*bargs, bf16=True)
+        ref = conv_block_plain(*bargs, bf16=True)
+        torch.cuda.synchronize()
+        # Summation order may move the pooled activation m (y = m*s + t)
+        # across a bf16 rounding boundary: allow one bf16 ulp of m*s,
+        # which is 2^-7 |m*s| at most (exactly that where m is a power of
+        # two), plus the f32 rounding of the affine itself.
+        err = (got - ref).abs()
+        worst = (err / (BF16_RTOL * (ref - t).abs() + 1e-5)).max().item()
+        record("conv_block bf16", (BATCH, h, w, cin), err.max().item(),
+               f"worst err / (2^-7*|m*s| + 1e-5) = {worst:.4f} <= 1.001",
+               worst <= 1.001,
+               cuda_ms(lambda: conv_block(*bargs, bf16=True)),
+               cuda_ms(lambda: conv_block_plain(*bargs, bf16=True)))
+    log(f"kernels: launches so far conv1_block {conv1_block.launches}, "
+        f"conv_block {conv_block.launches} (comparisons and timing only)")
+    return results
+
+
+def synthetic_frames(n: int, h: int = 144, w: int = 256,
+                     seed: int = 42) -> np.ndarray:
+    """Blocks of base colours plus noise, so the classes vary over time."""
+    rng = np.random.default_rng(seed)
+    blocks = [(0.3, (40, 120, 40)), (0.1, (10, 10, 10)),
+              (0.3, (150, 60, 60)), (0.05, (200, 200, 200)),
+              (0.25, (60, 60, 140))]
+    frames = []
+    for frac, colour in blocks:
+        k = max(1, int(round(frac * n)))
+        base = np.array(colour, np.int16)
+        noise = rng.integers(0, 30, (k, h, w, 3), dtype=np.int16)
+        frames.append(np.clip(base + noise, 0, 255).astype(np.uint8))
+    return np.concatenate(frames)[:n]
+
+
+def _csv_bytes(conf, pred, path):
+    from cut_detection_tpu_torch.pipeline import _smooth
+
+    _smooth(conf, pred, 100, 10).write_csv(path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_slice(dev, frames, workdir):
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
+    from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
+    from cut_detection_tpu_torch.pipeline import (
+        batch_frames,
+        classify_batches,
+    )
+
+    n = len(frames)
+    net_gpu, _ = load_default_net(dev)
+    net_cpu, _ = load_default_net("cpu")
+
+    def run(net):
+        return classify_batches(batch_frames(iter(frames), BATCH), net,
+                                batch_size=BATCH, length=n, print_every=0)
+
+    conf_cpu, pred_cpu, _ = run(net_cpu)
+
+    conv1_block.launches = 0
+    conv_block.launches = 0
+    conf_gpu, pred_gpu, stats = run(net_gpu)
+    launches = {"conv1_block": conv1_block.launches,
+                "conv_block": conv_block.launches}
+    n_batches = stats.batches
+    log(f"slice: {n} frames in {n_batches} batches of {BATCH}, launches "
+        f"{launches}")
+    if launches != {"conv1_block": n_batches, "conv_block": 2 * n_batches}:
+        raise AssertionError(f"expected 1 conv1_block and 2 conv_block "
+                             f"launches per batch, got {launches}")
+
+    if not np.array_equal(pred_gpu, pred_cpu):
+        bad = int(np.count_nonzero(pred_gpu != pred_cpu))
+        raise AssertionError(f"{bad} class flips between card and CPU")
+    conf_err = float(np.abs(conf_gpu - conf_cpu).max())
+    if conf_err > CONF_TOL:
+        raise AssertionError(f"conf differs by {conf_err} > {CONF_TOL}")
+    csv_gpu = _csv_bytes(conf_gpu, pred_gpu, os.path.join(workdir, "g.csv"))
+    csv_cpu = _csv_bytes(conf_cpu, pred_cpu, os.path.join(workdir, "c.csv"))
+    if csv_gpu != csv_cpu:
+        raise AssertionError("card CSV differs from the CPU CSV")
+    n_segments = csv_gpu.count(b"\n")
+    log(f"slice: pred identical, conf max_abs_err {conf_err:.3e} "
+        f"(tol {CONF_TOL:.0e}), CSV identical ({n_segments} segments), "
+        f"classes {np.bincount(pred_gpu, minlength=3).tolist()}")
+    return launches
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the host clock, up to a
+    synchronise of the card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _trace_device_ms(prof):
+    """From a ``torch.profiler`` trace: the device's busy milliseconds in
+    kernels (the union of their intervals), in copies and memsets, and
+    ``{kernel name: (ms, launches)}``."""
+    kernels, copies, per_name = [], [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if evt.name.startswith(("Memcpy", "Memset")):
+            copies.append(span)
+            continue
+        kernels.append(span)
+        ms, count = per_name.get(evt.name, (0.0, 0))
+        per_name[evt.name] = (ms + (span[1] - span[0]) / 1e3, count + 1)
+
+    def union_ms(spans):
+        total, end = 0.0, float("-inf")
+        for lo, hi in sorted(spans):
+            if hi > end:
+                total += hi - max(lo, end)
+                end = hi
+        return total / 1e3
+
+    return union_ms(kernels), union_ms(copies), per_name
+
+
+def phase_host(dev, frames):
+    """Where the slice loop's time per batch goes.
+
+    The loop (``classify_batches`` over ``batch_frames`` of frames in
+    host memory) is timed over 20 batches; each of its pieces is timed
+    alone; then the same loop runs under ``torch.profiler`` and the
+    card's busy share is read from that trace.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.pipeline import (
+        batch_frames,
+        classify_batches,
+        make_classify_step,
+    )
+
+    net, _ = load_default_net(dev)
+    step = make_classify_step(net)
+    n, reps = len(frames), 20
+    listed = list(frames[:BATCH])
+    batch = np.stack(listed)
+    resident = torch.from_numpy(batch).to(dev)
+    pinned = torch.from_numpy(batch).pin_memory()
+
+    def loop():
+        stream = (frames[i % n] for i in range(reps * BATCH))
+        return classify_batches(batch_frames(stream, BATCH), net,
+                                batch_size=BATCH, length=reps * BATCH,
+                                print_every=0)
+
+    loop()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, stats = loop()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    batch_ms = wall_ms / reps
+    log(f"host: slice loop, {reps} batches of {BATCH} from host memory: "
+        f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s end to end (steady "
+        f"{stats.steady_frames_per_sec:.1f}), {batch_ms:.4f} ms per batch")
+    pieces = (
+        ("np.stack of the batch's frames (batch_frames)",
+         host_ms(lambda: np.stack(listed))),
+        ("synchronous pageable upload (the loop's)",
+         host_ms(lambda: torch.from_numpy(batch).to(dev))),
+        ("upload from pinned memory (not used yet)",
+         host_ms(lambda: pinned.to(dev, non_blocking=True))),
+        ("device step on a resident batch (CUDA events)",
+         cuda_ms(lambda: step(resident))),
+    )
+    for name, ms in pieces:
+        log(f"host:   {name}: {ms:.4f} ms alone, "
+            f"{100 * ms / batch_ms:.1f}% of the batch")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    kernel_ms, copy_ms, per_name = _trace_device_ms(prof)
+    if not per_name:
+        log("host: the trace holds no device kernels; busy share not "
+            "measured")
+        return
+    log(f"host: under torch.profiler, {reps} batches in {traced_ms:.4f} ms: "
+        f"kernels {kernel_ms:.4f} ms ({100 * kernel_ms / traced_ms:.1f}% "
+        f"busy, from the trace), copies {copy_ms:.4f} ms "
+        f"({100 * copy_ms / traced_ms:.1f}%)")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (ms, count) in top:
+        log(f"host:   {ms / reps:.4f} ms per batch, {count} launches: "
+            f"{name[:100]}")
+
+
+def phase_golden(workdir):
+    from cut_detection_tpu_torch.cli.segment_video import main as cli_main
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
+    from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
+    from cut_detection_tpu_torch.pipeline import available_decoder
+
+    decoder = available_decoder()
+    if decoder is None:
+        log("golden: no video decoder on this machine (neither cv2 nor the "
+            "native decoder); golden-clip phase not run")
+        return
+    log(f"golden: decoder {decoder}")
+    extra = [] if decoder == "cv2" else ["--decoder", "native",
+                                         "--decode-process", "off"]
+    for clip, ref in (("clip.mp4", "ref_segments.csv"),
+                      ("clip_odd.mp4", "ref_segments_odd.csv")):
+        out = os.path.join(workdir, clip + ".csv")
+        # The CLI's own entry point, in this process so that its kernel
+        # launches are counted.
+        conv1_block.launches = 0
+        conv_block.launches = 0
+        t0 = time.perf_counter()
+        cli_main([os.path.join(GOLDEN, clip), "--transfer", "bgr",
+                  "--output_path", out, "--print-every", "0", *extra])
+        wall = time.perf_counter() - t0
+        launches = (conv1_block.launches, conv_block.launches)
+        with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
+            same = f.read() == g.read()
+        log(f"golden: {clip} -> {'byte-identical to' if same else 'DIFFERS from'}"
+            f" {ref} ({wall:.1f} s, launches conv1_block {launches[0]}, "
+            f"conv_block {launches[1]})")
+        if not same:
+            raise AssertionError(f"{clip}: CSV differs from {ref}")
+        if launches[0] == 0 or launches[1] != 2 * launches[0]:
+            raise AssertionError(f"{clip}: expected 1 conv1_block and 2 "
+                                 f"conv_block launches per batch, got "
+                                 f"{launches}")
+
+
+def main() -> int:
+    card = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    kres = phase_kernels(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    frames = synthetic_frames(3 * BATCH + 50)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        launches = phase_slice(dev, frames, wd)
+        phase_host(dev, frames)
+        phase_golden(wd)
+    rows = []
+    for name, source, replaces in (
+            ("conv1_block", "cut_detection_tpu_torch/csrc/conv1_block.cu",
+             "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
+            ("conv_block", "cut_detection_tpu_torch/csrc/conv_block.cu",
+             "cut_detection_tpu/ops/pallas/fused_block_pm.py:112")):
+        err, ms, plain_ms = kres[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

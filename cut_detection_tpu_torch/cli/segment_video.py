@@ -1,0 +1,151 @@
+"""``segment_video`` on PyTorch + CUDA: the port's production CLI.
+
+Same flags and defaults as ``cut_detection_tpu/cli/segment_video.py``
+(reference segment_video.py:81-126).  The model runs on the CUDA device,
+or on the CPU with ``--cpu``; without a CUDA device and without ``--cpu``
+it stops with an error.  Options of the JAX CLI that the port does not
+run yet are refused when the arguments are parsed, never ignored:
+``--precision`` other than float32, ``--transfer yuv420``,
+``--device-resize``, ``--pallas-preprocess``, ``--device-glue`` and
+``--profile``.  ``--transfer auto`` resolves to bgr.
+
+    python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
+        --transfer bgr [--output_path OUT.csv] [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from cut_detection_tpu.config import PRECISION_CHOICES
+from cut_detection_tpu.utils.logging import setup_logging
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        "Segment a video into scenes.", fromfile_prefix_chars="@")
+    p.add_argument("input_path", type=str, help="Path to video to segment.")
+    p.add_argument("--output_path", type=str, default=None,
+                   help="Path to output csv")
+    p.add_argument(
+        "--base-threshold", type=int, default=100,
+        help="Number of frames below which an A22 or EZ segment will be "
+             "considered an orphan.")
+    p.add_argument(
+        "--blank-threshold", type=int, default=10,
+        help="Number of frames below which a blank segment will be "
+             "considered an orphan.")
+    p.add_argument("--batch-size", type=int, default=128,
+                   help="Batch size for loading frames.")
+    p.add_argument("--print-every", type=int, default=50,
+                   help="Log message every n batches. 0 to disable.")
+    p.add_argument("--frame-limit", type=int, default=None,
+                   help="Limit how many frames are processed. Mainly for "
+                        "testing.")
+    p.add_argument("--cpu", action="store_true",
+                   help="Run on the CPU (otherwise a CUDA device is "
+                        "required).")
+    p.add_argument("--decode-workers", type=int, default=1,
+                   help="Parallel decode threads (1 = sequential reference "
+                        "behavior).")
+    p.add_argument("--decoder", choices=["cv2", "native", "auto"],
+                   default="cv2",
+                   help="Decode backend: OpenCV, the native libav stage, "
+                        "or auto (native when built).")
+    p.add_argument("--decode-process", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="Run host decode in a subprocess feeding a shared-"
+                        "memory batch ring (auto: on for CUDA).")
+    p.add_argument("--transfer", choices=["auto", "bgr", "yuv420"],
+                   default="auto",
+                   help="Host->device frame format.  Only bgr is ported; "
+                        "auto resolves to bgr.")
+    p.add_argument("--device-resize", action="store_true",
+                   help="Not yet ported.")
+    p.add_argument("--pallas-preprocess", action="store_true",
+                   help="Not yet ported.")
+    p.add_argument("--model-dir", type=str, default=None,
+                   help="Load a trained model triplet from this directory "
+                        "instead of the bundled prod classifier.")
+    p.add_argument("--model-name", type=str, default="init_model",
+                   help="Triplet name prefix within --model-dir.")
+    p.add_argument("--device-glue", action="store_true",
+                   help="Not yet ported.")
+    p.add_argument("--cache-scores", type=str, default=None,
+                   help="Path to a per-frame score cache (.npz); resumes "
+                        "from it if present.")
+    p.add_argument("--profile", type=str, default=None,
+                   help="Not yet ported.")
+    p.add_argument("--precision", choices=list(PRECISION_CHOICES),
+                   default="float32",
+                   help="Only float32 (reference-parity CSVs) is ported.")
+    return p
+
+
+def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
+    unported = []
+    if ns.precision != "float32":
+        unported.append(f"--precision {ns.precision}")
+    if ns.transfer == "yuv420":
+        unported.append("--transfer yuv420")
+    for flag in ("device_resize", "pallas_preprocess", "device_glue"):
+        if getattr(ns, flag):
+            unported.append("--" + flag.replace("_", "-"))
+    if ns.profile is not None:
+        unported.append("--profile")
+    if unported:
+        parser.error(f"{', '.join(unported)}: not yet ported, see "
+                     "ROADMAP.md")
+
+
+def main(args=None) -> str:
+    parser = build_parser()
+    ns = parser.parse_args(args)
+    _refuse_unported(parser, ns)
+    setup_logging()
+
+    from cut_detection_tpu_torch.utils.device import (
+        resolve_device,
+        strict_fp32,
+    )
+
+    try:
+        device = resolve_device(cpu=ns.cpu)
+    except RuntimeError as e:
+        parser.error(str(e))
+    strict_fp32()
+    logging.info("Using %s", device)
+
+    from cut_detection_tpu_torch.models.assembly import (
+        load_triplet_or_default,
+    )
+    from cut_detection_tpu_torch.pipeline import segment_video_file
+
+    net = None
+    if ns.model_dir:
+        net, _ = load_triplet_or_default(ns.model_dir, ns.model_name, device)
+        logging.info("Loaded model triplet %s from %s", ns.model_name,
+                     ns.model_dir)
+    out_path, _, _ = segment_video_file(
+        ns.input_path,
+        ns.output_path,
+        device=device,
+        net=net,
+        base_threshold=ns.base_threshold,
+        blank_threshold=ns.blank_threshold,
+        batch_size=ns.batch_size,
+        frame_limit=ns.frame_limit,
+        print_every=ns.print_every,
+        decode_workers=ns.decode_workers,
+        decoder=ns.decoder,
+        decode_process={"auto": "auto", "on": True,
+                        "off": False}[ns.decode_process],
+        transfer=ns.transfer,
+        cache_path=ns.cache_scores,
+    )
+    return out_path
+
+
+if __name__ == "__main__":
+    main()

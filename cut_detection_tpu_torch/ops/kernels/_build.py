@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source in ``cut_detection_tpu_torch/csrc/`` into
+one shared library with a plain C interface, at first use, into
+``build/cut_detection_tpu_torch/`` beside the package.  The build is keyed
+on a hash of the sources and the flags: a stale library is rebuilt, a
+current one is loaded as it is.  The library is bound with ``ctypes``:
+each entry point takes its pointers and the CUDA stream as ``c_void_p``
+and returns ``cudaGetLastError()`` after its launch.
+
+Nothing here runs when the module is imported; a missing ``nvcc``, a
+failed build or a failed load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "cut_detection_tpu_torch")
+LIB_NAME = "libcutdet_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Entry point -> argument types (see the extern "C" block of each .cu).
+_SIGNATURES = {
+    # x, w, bias, scale, offset, out, B, H, W, Cout, stream
+    "cutdet_conv1_block": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, bias, scale, offset, out, B, H, W, Cin, Cout, stream
+    "cutdet_conv_block_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_bf16": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+class BuildInfo:
+    """What the last compile did: nvcc's wall time and output (ptxas
+    register and spill report).  Empty when ``build()`` found the library
+    current."""
+
+    seconds: float = 0.0
+    log: str = ""
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (put the CUDA toolkit's bin/ on "
+                       "PATH or set CUDA_HOME)")
+
+
+def _lib_path() -> str:
+    return os.path.join(BUILD_DIR, LIB_NAME)
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into the library unless a current one exists;
+    return its path."""
+    lib_path = _lib_path()
+    stamp = lib_path + ".sha256"
+    if os.path.isfile(lib_path) and os.path.isfile(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == _source_hash():
+                return lib_path
+    return rebuild()
+
+
+def rebuild() -> str:
+    """Compile ``csrc/*.cu`` into the library whether or not a current one
+    exists, and stamp it with the sources' hash; return its path."""
+    digest = _source_hash()
+    lib_path = _lib_path()
+    stamp = lib_path + ".sha256"
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    srcs = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    BuildInfo.seconds = time.perf_counter() - t0
+    BuildInfo.log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{BuildInfo.log}")
+    os.replace(tmp, lib_path)
+    with open(stamp, "w") as f:
+        f.write(digest + "\n")
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cutdet_error_string.argtypes = [ctypes.c_int]
+            lib.cutdet_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def expect(t, name: str, dtype, shape: tuple, device) -> None:
+    """Validate a kernel argument before its pointer crosses the C ABI."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = library().cutdet_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,367 @@
+"""End-to-end inference pipeline of the port: decode -> classify -> segment
+-> CSV.
+
+Counterpart of ``cut_detection_tpu/pipeline.py`` (the float32 / bgr
+path), mirroring the reference's segment_video.py:20-77:
+
+    decode (host thread or subprocess) -> uint8 NHWC BGR batches ->
+    [device] layer-1 kernel on raw pixels (preprocess folded into its
+    weights) -> two more block kernels -> pool + FC head -> per-frame
+    max / argmax -> one preallocated device score buffer -> one fetch ->
+    run-length table -> orphan glue -> adjacent merge -> CSV.
+
+Batches have one static shape (the last one is zero-padded; a valid
+mask drops the padding), and every batch writes its (conf, pred) into a
+device buffer sized from the video's frame count, so the loop keeps no
+growing list of per-batch results.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import weakref
+
+import numpy as np
+import torch
+
+# ``batch_frames`` is also this module's public name for the batching that
+# ``classify_batches`` expects.
+from cut_detection_tpu.data.video import (
+    ParallelVideoReader,
+    VideoFrameSource,
+    batch_frames,
+)
+from cut_detection_tpu.utils.profiling import ThroughputMeter
+from cut_detection_tpu_torch.models.assembly import (
+    GluedNet,
+    fold_preprocess,
+    folded_input,
+    load_default_net,
+)
+from cut_detection_tpu_torch.segmentation.rle import Segmentation
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    frames: int = 0
+    batches: int = 0
+    decode_failures: int = 0
+    frames_per_sec: float = 0.0
+    steady_frames_per_sec: float = 0.0
+
+
+# Reference decode constants: resize width (segment_video.py:28), plus the
+# chunk size of parallel decode and the depth of the in-process prefetch.
+RESIZE = 256
+DECODE_CHUNK_FRAMES = 256
+PREFETCH_BATCHES = 2
+
+# Steps memoized per net, keyed weakly so a dropped net frees its step.
+_STEP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def make_classify_step(net: GluedNet):
+    """The device step: uint8 NHWC BGR ``[B, H, W, 3]`` on ``net.device``
+    -> ``(conf f32 [B], pred int32 [B])`` on the same device.
+
+    The BGR flip and /255 are folded into layer 1's weights
+    (``fold_preprocess``), so the layer-1 kernel reads the raw pixels.
+    argmax ties go to the first index, like ``torch.max`` in the
+    reference.  Memoized per net; the folded copy's kernel arguments are
+    computed once, here, not in every step.
+    """
+    step = _STEP_CACHE.get(net)
+    if step is not None:
+        return step
+    # The step must not hold a strong reference to its own weak key.
+    folded = GluedNet(net.model_params)
+    folded.load_state_dict(fold_preprocess(net.state_dict()))
+    folded.to(net.device)
+    for layer in folded.conv.conv_layers:
+        layer.freeze()
+
+    @torch.inference_mode()
+    def step(frames_u8: torch.Tensor):
+        logits = folded(folded_input(frames_u8))
+        return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
+
+    _STEP_CACHE[net] = step
+    return step
+
+
+def resolve_transfer(transfer: str = "auto") -> str:
+    """Resolve ``transfer`` ("auto"/"bgr"/"yuv420").
+
+    Only the bgr upload is ported, so "auto" resolves to "bgr" and
+    "yuv420" raises.
+    """
+    if transfer in ("auto", "bgr"):
+        return "bgr"
+    if transfer == "yuv420":
+        raise NotImplementedError(
+            "transfer 'yuv420' is not yet ported, see ROADMAP.md")
+    raise ValueError(f"unknown transfer mode {transfer!r}")
+
+
+def _resolve_decode_process(decode_process, device: torch.device) -> bool:
+    """Resolve ``decode_process`` ("auto"/True/False): "auto" decodes in a
+    subprocess exactly when the model runs on CUDA; on the CPU the
+    in-process thread loader is cheaper than a spawn per video."""
+    if decode_process == "auto":
+        return device.type == "cuda"
+    return bool(decode_process)
+
+
+def available_decoder() -> str | None:
+    """The video decoder this machine has: "cv2" when OpenCV imports, else
+    "native" when the libav decoder of ``cut_detection_tpu.native`` is
+    built, else None."""
+    try:
+        import cv2  # noqa: F401
+
+        return "cv2"
+    except ImportError:
+        pass
+    from cut_detection_tpu.data import native_video
+
+    return "native" if native_video.available() else None
+
+
+def _make_source(input_path: str, *, decode_workers: int, decoder: str):
+    """The in-process decode source (cv2 or the native libav decoder)."""
+    if decoder == "auto":
+        from cut_detection_tpu.data import native_video
+
+        decoder = "native" if native_video.available() else "cv2"
+    if decode_workers > 1:
+        return ParallelVideoReader(
+            input_path, resize=RESIZE, num_threads=decode_workers,
+            chunk_frames=DECODE_CHUNK_FRAMES, backend=decoder)
+    if decoder == "native":
+        from cut_detection_tpu.data.native_video import NativeVideoSource
+
+        return NativeVideoSource(input_path, resize=RESIZE)
+    return VideoFrameSource(input_path, resize=RESIZE)
+
+
+def _load_cached(cache_path: str, frame_limit, batch_size: int):
+    """Scores from a cache written by a run of the same shape, else None.
+
+    A frame-limited run writes a truncated table, and its early break
+    keys the kept frame count on the batch size, so both must match;
+    a cache without that metadata is never used.
+    """
+    with np.load(cache_path) as data:
+        has_meta = "frame_limit" in data and "batch_size" in data
+        cached_limit = int(data["frame_limit"]) if has_meta else None
+        cached_batch = int(data["batch_size"]) if has_meta else None
+        want_limit = -1 if frame_limit is None else int(frame_limit)
+        if has_meta and cached_limit == want_limit and (
+                want_limit == -1 or cached_batch == batch_size):
+            logger.info("Loaded cached scores from %s", cache_path)
+            return data["conf"], data["pred"]
+    logger.info(
+        "Ignoring score cache %s (%s: cached limit=%s batch=%s, requested "
+        "limit=%s batch=%s)", cache_path,
+        "frame_limit/batch mismatch" if has_meta
+        else "no run-shape metadata", cached_limit, cached_batch,
+        -1 if frame_limit is None else frame_limit, batch_size)
+    return None
+
+
+def classify_video(
+    input_path: str,
+    net: GluedNet | None = None,
+    *,
+    device=None,
+    batch_size: int = 128,
+    frame_limit: int | None = None,
+    print_every: int = 50,
+    decode_workers: int = 1,
+    cache_path: str | None = None,
+    decoder: str = "cv2",
+    decode_process: bool | str = "auto",
+    transfer: str = "auto",
+) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
+    """Decode + classify; return per-frame ``(conf, pred, stats)``.
+
+    The model runs on ``net.device``, or on ``device`` when the default
+    net is loaded here; one of the two is required.  Defaults mirror
+    segment_video.py: width 256, batch 128, a log line every 50 batches,
+    and the ``frame_limit`` break *after* the batch that crosses the
+    limit (:53-58).
+    """
+    if cache_path and os.path.isfile(cache_path):
+        cached = _load_cached(cache_path, frame_limit, batch_size)
+        if cached is not None:
+            return cached[0], cached[1], PipelineStats(
+                frames=int(cached[0].shape[0]))
+
+    if net is None:
+        if device is None:
+            raise ValueError("classify_video needs a net or a device")
+        net, _ = load_default_net(device)
+        logger.info("Loaded default classifier.")
+    device = net.device
+
+    if transfer == "auto":
+        logger.info("transfer=auto resolved to bgr (yuv420 is not yet "
+                    "ported)")
+    transfer = resolve_transfer(transfer)
+
+    if _resolve_decode_process(decode_process, device):
+        from cut_detection_tpu.data.shm_loader import ShmDecodeLoader
+
+        # On the CPU, torch.from_numpy would alias a ring slot that the
+        # decoder recycles, so take copies.  On CUDA the synchronous
+        # host->device copy has left the slot when it returns.
+        source = ShmDecodeLoader(
+            input_path, batch_size=batch_size, resize=RESIZE,
+            decode_workers=decode_workers,
+            decode_chunk_frames=DECODE_CHUNK_FRAMES, decoder=decoder,
+            copy_out=device.type == "cpu", transfer=transfer)
+        batches = source
+    else:
+        from cut_detection_tpu.data.loader import PrefetchLoader
+
+        source = _make_source(input_path, decode_workers=decode_workers,
+                              decoder=decoder)
+        batches = PrefetchLoader(batch_frames(source, batch_size),
+                                 depth=PREFETCH_BATCHES)
+
+    conf_np, pred_np, stats = classify_batches(
+        batches, net, batch_size=batch_size,
+        length=int(source.video_info["length"]), frame_limit=frame_limit,
+        print_every=print_every)
+    stats.decode_failures = getattr(source, "frames_failed", 0)
+
+    if cache_path:
+        # Atomic write: a kill mid-save must leave no half-written cache.
+        tmp = cache_path + ".tmp.npz"
+        np.savez(tmp, conf=conf_np, pred=pred_np,
+                 frame_limit=np.int64(-1 if frame_limit is None
+                                      else frame_limit),
+                 batch_size=np.int64(batch_size))
+        os.replace(tmp, cache_path)
+        logger.info("Cached scores to %s", cache_path)
+    return conf_np, pred_np, stats
+
+
+def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
+                     length: int = 0, frame_limit: int | None = None,
+                     print_every: int = 50,
+                     ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
+    """The device loop of :func:`classify_video` over decoded batches.
+
+    ``batches`` yields ``(uint8 [batch_size, H, W, 3] BGR, valid)`` as
+    ``cut_detection_tpu.data.video.batch_frames`` does; ``length`` (the
+    expected frame count) sizes the device score buffer.  The batches'
+    ``close()``, when they have one, runs on exit.  Returns the valid
+    frames' ``(conf, pred, stats)``.
+    """
+    device = net.device
+    meter = ThroughputMeter(warmup_items=batch_size)
+    meter.start()
+    valids: list[int] = []
+    stats = PipelineStats()
+    try:
+        step = make_classify_step(net)
+        # One score buffer on the device, sized from the expected frame
+        # count (doubled whenever a container under-reports it).
+        n_batches = max(1, -(-length // batch_size))
+        if frame_limit is not None:
+            n_batches = min(n_batches, frame_limit // batch_size + 1)
+        conf_buf = torch.empty(n_batches * batch_size, dtype=torch.float32,
+                               device=device)
+        pred_buf = torch.empty(n_batches * batch_size, dtype=torch.int32,
+                               device=device)
+        for i, (batch, valid) in enumerate(batches):
+            lo, hi = i * batch_size, (i + 1) * batch_size
+            if hi > conf_buf.shape[0]:
+                conf_buf = torch.cat([conf_buf, torch.empty_like(conf_buf)])
+                pred_buf = torch.cat([pred_buf, torch.empty_like(pred_buf)])
+            conf, pred = step(torch.from_numpy(batch).to(device))
+            conf_buf[lo:hi] = conf
+            pred_buf[lo:hi] = pred
+            valids.append(valid)
+            meter.update(valid)
+            stats.batches += 1
+            stats.frames += valid
+            if print_every > 0 and i % print_every == print_every - 1:
+                logger.info("Scored batch %d (%d frames).", i + 1, hi)
+            # Reference early-break semantics (segment_video.py:53-58).
+            if frame_limit is not None and hi > frame_limit:
+                break
+        # One fetch of both vectors; the valid mask drops the padding.
+        n = len(valids) * batch_size
+        conf_all = conf_buf[:n].cpu().numpy()
+        pred_all = pred_buf[:n].cpu().numpy()
+    finally:
+        if hasattr(batches, "close"):  # PrefetchLoader / ShmDecodeLoader
+            batches.close()
+    mask = np.zeros((len(valids), batch_size), bool)
+    for i, v in enumerate(valids):
+        mask[i, :v] = True
+    stats.frames_per_sec = meter.rate
+    stats.steady_frames_per_sec = meter.steady_rate
+    logger.info("Classified %d frames at %.1f fps (steady %.1f fps).",
+                stats.frames, stats.frames_per_sec,
+                stats.steady_frames_per_sec)
+    return (conf_all[mask.ravel()],
+            pred_all[mask.ravel()].astype(np.int32), stats)
+
+
+def _smooth(conf, pred, base_threshold: int,
+            blank_threshold: int) -> Segmentation:
+    """Per-frame scores -> smoothed segment table (host merge loops)."""
+    seg = Segmentation.from_frame_scores(conf, pred)
+    logger.info("Found %d initial segments", len(seg))
+    seg.glue_orphans(base_threshold, blank_threshold)
+    logger.info("Revised to %d segments through orphan combination.",
+                len(seg))
+    seg.combine_adjacent_segments()
+    logger.info(
+        "Revised to %d segments through matching adjacent combination.",
+        len(seg))
+    return seg
+
+
+def segment_video_file(
+    input_path: str,
+    output_path: str | None = None,
+    *,
+    device=None,
+    net: GluedNet | None = None,
+    base_threshold: int = 100,
+    blank_threshold: int = 10,
+    batch_size: int = 128,
+    frame_limit: int | None = None,
+    print_every: int = 50,
+    decode_workers: int = 1,
+    cache_path: str | None = None,
+    decoder: str = "cv2",
+    decode_process: bool | str = "auto",
+    transfer: str = "auto",
+) -> tuple[str, Segmentation, PipelineStats]:
+    """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
+
+    Default output naming (input stem + ``_segments.csv``) and glue
+    thresholds follow segment_video.py:71-74, 91-102.
+    """
+    if not os.path.isfile(input_path):
+        raise ValueError(f"{input_path} does not exist.")
+    conf, pred, stats = classify_video(
+        input_path, net, device=device, batch_size=batch_size,
+        frame_limit=frame_limit, print_every=print_every,
+        decode_workers=decode_workers, cache_path=cache_path,
+        decoder=decoder, decode_process=decode_process, transfer=transfer)
+    seg = _smooth(conf, pred, base_threshold, blank_threshold)
+    if output_path is None:
+        output_path = os.path.splitext(input_path)[0] + "_segments.csv"
+    logger.info("Writing %d segments to %s", len(seg), output_path)
+    seg.write_csv(output_path)
+    return output_path, seg, stats

@@ -28,8 +28,11 @@ setup(
         "TPU-native NFL broadcast cut detection: JAX/XLA/Pallas frame "
         "classifier + run-length segmenter"
     ),
-    packages=find_packages(include=["cut_detection_tpu", "cut_detection_tpu.*"]),
-    package_data={"cut_detection_tpu": ["prod_net/*.npz", "prod_net/*.json"]},
+    packages=find_packages(include=["cut_detection_tpu", "cut_detection_tpu.*",
+                                    "cut_detection_tpu_torch",
+                                    "cut_detection_tpu_torch.*"]),
+    package_data={"cut_detection_tpu": ["prod_net/*.npz", "prod_net/*.json"],
+                  "cut_detection_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     # Pinned like the reference (requirements.txt:1-4 pins torch===1.9.1
     # etc.).  opencv is pinned EXACTLY: the bit-exact INTER_LINEAR resize

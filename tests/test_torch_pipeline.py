@@ -1,0 +1,231 @@
+"""The port's pipeline and CLI on the CPU, against the golden CSVs and the
+JAX pipeline on the same videos.
+
+``--cpu --transfer bgr`` is the byte-parity configuration: its CSVs must
+equal ``tests/golden/ref_segments*.csv`` and the JAX CLI's output.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cut_detection_tpu.data.video import batch_frames
+from cut_detection_tpu.pipeline import classify_video as jax_classify
+from cut_detection_tpu.pipeline import segment_video_file as jax_segment
+from cut_detection_tpu.segmentation import glue as jax_glue
+from cut_detection_tpu.segmentation.csv_io import (
+    write_segments_csv as jax_write_csv,
+)
+from cut_detection_tpu.segmentation.rle import Segmentation as JaxSegmentation
+from cut_detection_tpu_torch.cli import segment_video as cli
+from cut_detection_tpu_torch.models.assembly import load_default_net
+from cut_detection_tpu_torch.pipeline import (
+    _resolve_decode_process,
+    available_decoder,
+    classify_batches,
+    classify_video,
+    resolve_transfer,
+    segment_video_file,
+)
+from cut_detection_tpu_torch.segmentation import glue
+from cut_detection_tpu_torch.segmentation.csv_io import write_segments_csv
+from cut_detection_tpu_torch.segmentation.rle import Segmentation
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+CPU = torch.device("cpu")
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def net():
+    return load_default_net(CPU)[0]
+
+
+@pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
+                                      ("clip_odd.mp4",
+                                       "ref_segments_odd.csv")])
+def test_cli_matches_golden_csv(tmp_path, clip, ref):
+    """clip_odd (427x240 -> 256x143) takes floor pooling over an H that 3
+    does not divide."""
+    out = str(tmp_path / "out.csv")
+    got = cli.main([os.path.join(GOLDEN, clip), "--cpu", "--transfer", "bgr",
+                    "--output_path", out, "--print-every", "0"])
+    assert got == out
+    assert _read(out) == _read(os.path.join(GOLDEN, ref))
+
+
+@pytest.mark.parametrize("decode_process", [False, True])
+def test_segment_video_matches_jax(synthetic_video, tmp_path, net,
+                                   decode_process):
+    """Same CSV as the JAX pipeline, with in-process decode and with the
+    shared-memory decode subprocess (whose ring slots are copied out on
+    the CPU)."""
+    ours, theirs = str(tmp_path / "ours.csv"), str(tmp_path / "jax.csv")
+    segment_video_file(synthetic_video, ours, net=net, batch_size=64,
+                       print_every=0, decode_process=decode_process,
+                       transfer="bgr")
+    jax_segment(synthetic_video, theirs, batch_size=64, print_every=0,
+                transfer="bgr")
+    assert _read(ours) == _read(theirs)
+    assert b"\r\n" in _read(ours)
+
+
+def test_frame_limit_matches_jax(synthetic_video, tmp_path, net):
+    """--frame-limit breaks after the batch that crosses the limit."""
+    conf, _, _ = classify_video(synthetic_video, net, batch_size=32,
+                                frame_limit=100, print_every=0)
+    jconf, _, _ = jax_classify(synthetic_video, batch_size=32,
+                               frame_limit=100, print_every=0,
+                               transfer="bgr")
+    assert conf.shape[0] == jconf.shape[0] == 128
+    ours, theirs = str(tmp_path / "ours.csv"), str(tmp_path / "jax.csv")
+    segment_video_file(synthetic_video, ours, net=net, batch_size=64,
+                       frame_limit=100, print_every=0)
+    jax_segment(synthetic_video, theirs, batch_size=64, frame_limit=100,
+                print_every=0, transfer="bgr")
+    assert _read(ours) == _read(theirs)
+
+
+def _cache_runs(classify, video, cache):
+    """The JAX cache test's sequence of runs: (frames, batches) each."""
+    out = []
+    for bs, limit in ((32, 40), (32, None), (32, 40), (32, 40), (64, 40),
+                      (64, 40)):
+        conf, _, stats = classify(video, batch_size=bs, frame_limit=limit,
+                                  cache_path=cache, print_every=0)
+        out.append((conf.shape[0], stats.batches))
+    return out
+
+
+def test_score_cache_matches_jax(synthetic_video, tmp_path, net):
+    """Served from the cache exactly when JAX's would be: same frame
+    limit and, for a limited run, the same batch size."""
+    ours = _cache_runs(
+        lambda *a, **k: classify_video(*a, net=net, **k), synthetic_video,
+        str(tmp_path / "ours.npz"))
+    theirs = _cache_runs(
+        lambda *a, **k: jax_classify(*a, transfer="bgr", **k),
+        synthetic_video, str(tmp_path / "jax.npz"))
+    assert ours == theirs
+    assert [b for _, b in ours][3] == 0  # the repeat came from the cache
+    with np.load(tmp_path / "ours.npz") as a, \
+            np.load(tmp_path / "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        np.testing.assert_array_equal(a["pred"], b["pred"])
+        assert int(a["batch_size"]) == int(b["batch_size"])
+
+
+def test_score_buffer_grows_past_reported_length(net):
+    """A container that under-reports its frame count still scores every
+    frame (the device buffer doubles)."""
+    frames = np.random.default_rng(0).integers(0, 256, (70, 36, 64, 3),
+                                               dtype=np.uint8)
+    conf, pred, stats = classify_batches(batch_frames(iter(frames), 16),
+                                         net, batch_size=16, length=1,
+                                         print_every=0)
+    ref_conf, ref_pred, _ = classify_batches(
+        batch_frames(iter(frames), 16), net, batch_size=16, length=70,
+        print_every=0)
+    assert stats.batches == 5 and conf.shape == (70,)
+    np.testing.assert_array_equal(pred, ref_pred)
+    np.testing.assert_array_equal(conf, ref_conf)
+
+
+def _scores(seed: int, n: int = 600):
+    """Piecewise-constant classes with short orphans and noisy scores."""
+    rng = np.random.default_rng(seed)
+    pred = np.repeat(rng.integers(0, 3, 40), rng.integers(1, 40, 40))[:n]
+    conf = rng.normal(5, 2, pred.shape[0]).astype(np.float32)
+    return conf, pred
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("backend", ["python", "auto"])
+def test_segmentation_matches_jax(tmp_path, seed, backend):
+    conf, pred = _scores(seed)
+    ours = Segmentation.from_frame_scores(conf, pred)
+    theirs = JaxSegmentation.from_frame_scores(conf, pred)
+    for seg in (ours, theirs):
+        seg.glue_orphans(100, 10, backend=backend)
+        seg.combine_adjacent_segments(backend=backend)
+    assert ours.te.keys() == theirs.te.keys()
+    for k in ours.te:
+        np.testing.assert_array_equal(ours.te[k], theirs.te[k])
+    ours.write_csv(str(tmp_path / "a.csv"))
+    theirs.write_csv(str(tmp_path / "b.csv"))
+    assert _read(tmp_path / "a.csv") == _read(tmp_path / "b.csv")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_glue_and_csv_match_jax(tmp_path, seed):
+    """``Segmentation(logits)`` and the numpy merge loop on their own."""
+    logits = np.random.default_rng(seed).normal(0, 1, (200, 3))
+    te = Segmentation(logits).te
+    assert te.keys() == JaxSegmentation(logits).te.keys()
+    a = glue.glue_orphans({k: v.copy() for k, v in te.items()}, 20, 5)
+    b = jax_glue.glue_orphans({k: v.copy() for k, v in te.items()}, 20, 5)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    write_segments_csv(str(tmp_path / "a.csv"), [0, 7, 99], ["b", "ez", "a22"])
+    jax_write_csv(str(tmp_path / "b.csv"), [0, 7, 99], ["b", "ez", "a22"])
+    assert _read(tmp_path / "a.csv") == _read(tmp_path / "b.csv")
+
+
+def test_transfer_and_decode_process_resolution():
+    assert resolve_transfer("auto") == resolve_transfer("bgr") == "bgr"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        resolve_transfer("yuv420")
+    with pytest.raises(ValueError):
+        resolve_transfer("rgb")
+    assert _resolve_decode_process("auto", torch.device("cuda")) is True
+    assert _resolve_decode_process("auto", CPU) is False
+    assert _resolve_decode_process(True, CPU) is True
+
+
+@pytest.mark.parametrize("cv2_present", [True, False])
+@pytest.mark.parametrize("native_built", [True, False])
+def test_available_decoder(monkeypatch, cv2_present, native_built):
+    """cv2 when it imports, else the native decoder when it is built."""
+    import sys
+
+    from cut_detection_tpu.data import native_video
+
+    if not cv2_present:
+        monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(native_video, "available", lambda: native_built)
+    want = "cv2" if cv2_present else "native" if native_built else None
+    assert available_decoder() == want
+
+
+@pytest.mark.parametrize("flags", [
+    ["--precision", "bfloat16"], ["--precision", "int8_mxu"],
+    ["--transfer", "yuv420"], ["--device-resize"], ["--pallas-preprocess"],
+    ["--device-glue"], ["--profile", "trace_dir"],
+])
+def test_cli_refuses_unported_flags(capsys, flags):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["clip.mp4", "--cpu", *flags])
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_without_cuda_needs_cpu_flag(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        cli.main([os.path.join(GOLDEN, "clip.mp4")])
+    assert exc.value.code == 2
+    assert "pass --cpu" in capsys.readouterr().err
+
+
+def test_cli_defaults_match_jax_cli():
+    from cut_detection_tpu.cli.segment_video import build_parser as jax_parser
+
+    ours = vars(cli.build_parser().parse_args(["v.mp4"]))
+    theirs = vars(jax_parser().parse_args(["v.mp4"]))
+    assert ours == theirs
