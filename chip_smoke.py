@@ -9,8 +9,9 @@ Phases, each of which raises on failure:
 2. build   — compiles every kernel from ``cut_detection_tpu_torch/csrc``
              with nvcc and prints the build time and ptxas report;
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (batch 128, seeded numpy inputs), with
-             the max error, the tolerance and the median times;
+             the main path's shapes (batch 128, seeded inputs), with the
+             max error, the tolerance and the median times; the resize +
+             normalize kernel at 1280x720 -> 256x144;
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -19,12 +20,24 @@ Phases, each of which raises on failure:
 5. host    — where the slice loop's time per batch goes: the loop's
              frames/s, each of its pieces timed alone, and the card's
              busy share read from a ``torch.profiler`` trace of the loop;
-6. golden  — when a decoder exists (cv2 or the native decoder), the
+6. preprocess — a seeded synthetic 1280x720 stream through the device
+             loop with the resize on the card (``--device-resize``): the
+             exact path against the same frames resized on the host,
+             the fused-kernel path (``--pallas-preprocess``) against the
+             CPU; each path's launch counts; then per batch at 720p the
+             loop's frames/s, the stack, the pageable and pinned uploads,
+             the resizes and the steps, and each loop's busy share from
+             a trace;
+7. golden  — when a decoder exists (cv2 or the native decoder), the
              ``segment_video`` CLI's ``main`` on the committed golden
-             clips, compared byte for byte with the reference CSVs, with
-             its kernel launches counted.
+             clips, with no preprocess flag, ``--device-resize`` and
+             ``--device-resize --pallas-preprocess``, compared byte for
+             byte with the reference CSVs, with its kernel launches
+             counted.
 
-Then one JSON line with every kernel's numbers, and last the result line
+Before it prints a result the run stops every process it started (the
+decode subprocesses and ``multiprocessing``'s resource tracker).  Then
+one JSON line with every kernel's numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 """
 
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import sys
 import tempfile
 import time
@@ -45,6 +59,10 @@ BATCH = 128
 F32_TOL = 1e-4          # f32 kernel vs plain: summation order only
 CONF_TOL = 1e-4         # slice confidences, card vs CPU
 BF16_RTOL = 2.0 ** -7   # one bf16 ulp of the pooled activation
+K5_TOL = 1e-5           # resize + normalize on [0, 1]: two-tap sums
+                        # against the plain version's dense matmuls
+SRC_HW = (720, 1280)    # source frames of the preprocess paths
+MODEL_HW = (144, 256)   # their size at the model (reference size rule)
 
 
 def log(msg: str) -> None:
@@ -119,6 +137,10 @@ def phase_kernels(dev):
         conv_block,
         conv_block_plain,
     )
+    from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+        resize_normalize,
+        resize_normalize_plain,
+    )
 
     rng = np.random.default_rng(0)
     net, _ = load_default_net(dev)
@@ -190,8 +212,21 @@ def phase_kernels(dev):
                worst <= 1.001,
                cuda_ms(lambda: conv_block(*bargs, bf16=True)),
                cuda_ms(lambda: conv_block_plain(*bargs, bf16=True)))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (BATCH, *SRC_HW, 3), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    got = resize_normalize(raw, *MODEL_HW)
+    ref = resize_normalize_plain(raw, *MODEL_HW)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    results["resize_normalize"] = record(
+        "resize_normalize", (BATCH, *SRC_HW, 3), err, f"tol {K5_TOL:.0e}",
+        err <= K5_TOL, cuda_ms(lambda: resize_normalize(raw, *MODEL_HW)),
+        cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)))
     log(f"kernels: launches so far conv1_block {conv1_block.launches}, "
-        f"conv_block {conv_block.launches} (comparisons and timing only)")
+        f"conv_block {conv_block.launches}, resize_normalize "
+        f"{resize_normalize.launches} (comparisons and timing only)")
     return results
 
 
@@ -219,10 +254,41 @@ def _csv_bytes(conf, pred, path):
         return f.read()
 
 
-def phase_slice(dev, frames, workdir):
-    from cut_detection_tpu_torch.models.assembly import load_default_net
+def _wrappers():
+    """Every kernel wrapper of the port, by name; each counts its own
+    kernel launches in ``launches``."""
     from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
     from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
+    from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+        resize_normalize,
+    )
+
+    return {"conv1_block": conv1_block, "conv_block": conv_block,
+            "resize_normalize": resize_normalize}
+
+
+def zero_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def per_batch(n: int, conv1: int, conv: int, fused: int) -> dict:
+    """The launches ``n`` batches of a path should make."""
+    return {"conv1_block": conv1 * n, "conv_block": conv * n,
+            "resize_normalize": fused * n}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: expected launches {want}, got {got}")
+
+
+def phase_slice(dev, frames, workdir):
+    from cut_detection_tpu_torch.models.assembly import load_default_net
     from cut_detection_tpu_torch.pipeline import (
         batch_frames,
         classify_batches,
@@ -238,17 +304,13 @@ def phase_slice(dev, frames, workdir):
 
     conf_cpu, pred_cpu, _ = run(net_cpu)
 
-    conv1_block.launches = 0
-    conv_block.launches = 0
+    zero_launches()
     conf_gpu, pred_gpu, stats = run(net_gpu)
-    launches = {"conv1_block": conv1_block.launches,
-                "conv_block": conv_block.launches}
+    launches = read_launches()
     n_batches = stats.batches
     log(f"slice: {n} frames in {n_batches} batches of {BATCH}, launches "
         f"{launches}")
-    if launches != {"conv1_block": n_batches, "conv_block": 2 * n_batches}:
-        raise AssertionError(f"expected 1 conv1_block and 2 conv_block "
-                             f"launches per batch, got {launches}")
+    check_launches("slice", launches, per_batch(n_batches, 1, 2, 0))
 
     if not np.array_equal(pred_gpu, pred_cpu):
         bad = int(np.count_nonzero(pred_gpu != pred_cpu))
@@ -317,8 +379,6 @@ def phase_host(dev, frames):
     alone; then the same loop runs under ``torch.profiler`` and the
     card's busy share is read from that trace.
     """
-    from torch.profiler import ProfilerActivity, profile
-
     from cut_detection_tpu_torch.models.assembly import load_default_net
     from cut_detection_tpu_torch.pipeline import (
         batch_frames,
@@ -363,6 +423,14 @@ def phase_host(dev, frames):
         log(f"host:   {name}: {ms:.4f} ms alone, "
             f"{100 * ms / batch_ms:.1f}% of the batch")
 
+    trace_loop("host", loop, reps)
+
+
+def trace_loop(tag: str, loop, reps: int) -> None:
+    """Run ``loop`` (``reps`` batches) under ``torch.profiler`` and log the
+    card's busy share and the costliest kernels per batch."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -371,23 +439,155 @@ def phase_host(dev, frames):
         traced_ms = 1e3 * (time.perf_counter() - t0)
     kernel_ms, copy_ms, per_name = _trace_device_ms(prof)
     if not per_name:
-        log("host: the trace holds no device kernels; busy share not "
+        log(f"{tag}: the trace holds no device kernels; busy share not "
             "measured")
         return
-    log(f"host: under torch.profiler, {reps} batches in {traced_ms:.4f} ms: "
-        f"kernels {kernel_ms:.4f} ms ({100 * kernel_ms / traced_ms:.1f}% "
-        f"busy, from the trace), copies {copy_ms:.4f} ms "
+    log(f"{tag}: under torch.profiler, {reps} batches in {traced_ms:.4f} "
+        f"ms: kernels {kernel_ms:.4f} ms ({100 * kernel_ms / traced_ms:.1f}%"
+        f" busy, from the trace), copies {copy_ms:.4f} ms "
         f"({100 * copy_ms / traced_ms:.1f}%)")
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
     for name, (ms, count) in top:
-        log(f"host:   {ms / reps:.4f} ms per batch, {count} launches: "
+        log(f"{tag}:   {ms / reps:.4f} ms per batch, {count} launches: "
             f"{name[:100]}")
+
+
+def phase_preprocess(dev):
+    """The on-device preprocess paths at 720p, through the device loop.
+
+    A seeded synthetic 1280x720 stream of ``2*BATCH+37`` frames from host
+    memory (not through the decode ring, whose six source-resolution
+    slots would take 2.1 GB of shared memory) goes through
+    ``classify_batches`` with the resize on the card:
+
+    - exact (``--device-resize``): ``pred`` and ``conf`` identical to the
+      same frames resized on the host by the port's exact resize and
+      sent through the default step;
+    - fused (``--pallas-preprocess``): ``pred`` identical to the same
+      path on the CPU (plain versions), ``conf`` within 1e-4.
+
+    Each path's launches are counted over its run.  Then, per batch: the
+    loop's frames/s for each path, the pieces of the loop timed alone,
+    and each loop's busy share from a trace.  Returns the fused path's
+    launch counts.
+    """
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+        resize_normalize,
+    )
+    from cut_detection_tpu_torch.ops.resize import resize_bilinear
+    from cut_detection_tpu_torch.pipeline import (
+        batch_frames,
+        classify_batches,
+        make_classify_step,
+    )
+
+    n = 2 * BATCH + 37
+    t0 = time.perf_counter()
+    frames = synthetic_frames(n, *SRC_HW, seed=7)
+    log(f"preprocess: {n} synthetic {SRC_HW[1]}x{SRC_HW[0]} frames made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    net_gpu, _ = load_default_net(dev)
+    net_cpu, _ = load_default_net("cpu")
+    exact = {"device_resize": MODEL_HW}
+    fused = {"device_resize": MODEL_HW, "pallas_preprocess": True}
+
+    def run(net, stream, **opts):
+        return classify_batches(batch_frames(iter(stream), BATCH), net,
+                                batch_size=BATCH, length=len(stream),
+                                print_every=0, **opts)
+
+    zero_launches()
+    conf, pred, stats = run(net_gpu, frames, **exact)
+    got = read_launches()
+    log(f"preprocess: exact path, {n} frames in {stats.batches} batches, "
+        f"launches {got}")
+    check_launches("exact path", got, per_batch(stats.batches, 1, 2, 0))
+    resized = resize_bilinear(torch.from_numpy(frames), *MODEL_HW).numpy()
+    ref_conf, ref_pred, _ = run(net_gpu, resized)
+    if not (np.array_equal(pred, ref_pred) and np.array_equal(conf,
+                                                              ref_conf)):
+        raise AssertionError("exact path differs from the host-resized "
+                             "frames through the default step")
+    log("preprocess: exact path, pred and conf identical to the frames "
+        "resized on the host through the default step, classes "
+        f"{np.bincount(pred, minlength=3).tolist()}")
+
+    zero_launches()
+    conf, pred, stats = run(net_gpu, frames, **fused)
+    launches = read_launches()
+    log(f"preprocess: fused path, {n} frames in {stats.batches} batches, "
+        f"launches {launches}")
+    check_launches("fused path", launches, per_batch(stats.batches, 0, 3, 1))
+    cpu_conf, cpu_pred, _ = run(net_cpu, frames, **fused)
+    if not np.array_equal(pred, cpu_pred):
+        bad = int(np.count_nonzero(pred != cpu_pred))
+        raise AssertionError(f"fused path: {bad} class flips between card "
+                             "and CPU")
+    conf_err = float(np.abs(conf - cpu_conf).max())
+    if conf_err > CONF_TOL:
+        raise AssertionError(f"fused path: conf differs by {conf_err} > "
+                             f"{CONF_TOL}")
+    log(f"preprocess: fused path, pred identical to the CPU, conf "
+        f"max_abs_err {conf_err:.3e} (tol {CONF_TOL:.0e}), classes "
+        f"{np.bincount(pred, minlength=3).tolist()}")
+
+    reps = 8
+    listed = list(frames[:BATCH])
+    batch = np.stack(listed)
+    resident = torch.from_numpy(batch).to(dev)
+    pinned = torch.from_numpy(batch).pin_memory()
+
+    def loop(opts):
+        stream = (frames[i % n] for i in range(reps * BATCH))
+        return classify_batches(batch_frames(stream, BATCH), net_gpu,
+                                batch_size=BATCH, length=reps * BATCH,
+                                print_every=0, **opts)
+
+    for name, opts in (("exact", exact), ("fused", fused)):
+        loop(opts)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, st = loop(opts)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"preprocess: {name} loop, {reps} batches of {BATCH} from host "
+            f"memory: {1e3 * reps * BATCH / wall_ms:.1f} frames/s end to end"
+            f" (steady {st.steady_frames_per_sec:.1f}), "
+            f"{wall_ms / reps:.4f} ms per batch")
+    step_exact = make_classify_step(net_gpu, **exact)
+    step_fused = make_classify_step(net_gpu, **fused)
+    pieces = (
+        ("np.stack of the batch's frames (batch_frames)",
+         host_ms(lambda: np.stack(listed))),
+        (f"synchronous pageable upload of {batch.nbytes / 1e6:.1f} MB "
+         "(the loop's)", host_ms(lambda: torch.from_numpy(batch).to(dev))),
+        ("upload from pinned memory (not used yet)",
+         host_ms(lambda: pinned.to(dev, non_blocking=True))),
+        ("exact resize on the card (ops.resize, CUDA events)",
+         cuda_ms(lambda: resize_bilinear(resident, *MODEL_HW))),
+        ("resize_normalize kernel (CUDA events)",
+         cuda_ms(lambda: resize_normalize(resident, *MODEL_HW))),
+        ("exact-path step on a resident batch (CUDA events)",
+         cuda_ms(lambda: step_exact(resident))),
+        ("fused-path step on a resident batch (CUDA events)",
+         cuda_ms(lambda: step_fused(resident))),
+    )
+    for name, ms in pieces:
+        log(f"preprocess:   {name}: {ms:.4f} ms per batch")
+    for name, opts in (("exact", exact), ("fused", fused)):
+        trace_loop(f"preprocess {name}", lambda: loop(opts), reps)
+    return launches
+
+
+# (CLI flags, launches per batch of conv1_block, conv_block,
+# resize_normalize) of each golden run.
+GOLDEN_RUNS = (([], (1, 2, 0)),
+               (["--device-resize"], (1, 2, 0)),
+               (["--device-resize", "--pallas-preprocess"], (0, 3, 1)))
 
 
 def phase_golden(workdir):
     from cut_detection_tpu_torch.cli.segment_video import main as cli_main
-    from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
-    from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
     from cut_detection_tpu_torch.pipeline import available_decoder
 
     decoder = available_decoder()
@@ -398,32 +598,96 @@ def phase_golden(workdir):
     log(f"golden: decoder {decoder}")
     extra = [] if decoder == "cv2" else ["--decoder", "native",
                                          "--decode-process", "off"]
-    for clip, ref in (("clip.mp4", "ref_segments.csv"),
-                      ("clip_odd.mp4", "ref_segments_odd.csv")):
-        out = os.path.join(workdir, clip + ".csv")
-        # The CLI's own entry point, in this process so that its kernel
-        # launches are counted.
-        conv1_block.launches = 0
-        conv_block.launches = 0
-        t0 = time.perf_counter()
-        cli_main([os.path.join(GOLDEN, clip), "--transfer", "bgr",
-                  "--output_path", out, "--print-every", "0", *extra])
-        wall = time.perf_counter() - t0
-        launches = (conv1_block.launches, conv_block.launches)
-        with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
-            same = f.read() == g.read()
-        log(f"golden: {clip} -> {'byte-identical to' if same else 'DIFFERS from'}"
-            f" {ref} ({wall:.1f} s, launches conv1_block {launches[0]}, "
-            f"conv_block {launches[1]})")
-        if not same:
-            raise AssertionError(f"{clip}: CSV differs from {ref}")
-        if launches[0] == 0 or launches[1] != 2 * launches[0]:
-            raise AssertionError(f"{clip}: expected 1 conv1_block and 2 "
-                                 f"conv_block launches per batch, got "
-                                 f"{launches}")
+    for flags, per in GOLDEN_RUNS:
+        for clip, ref in (("clip.mp4", "ref_segments.csv"),
+                          ("clip_odd.mp4", "ref_segments_odd.csv")):
+            out = os.path.join(workdir, clip + ".csv")
+            # The CLI's own entry point, in this process so that its
+            # kernel launches are counted.
+            zero_launches()
+            t0 = time.perf_counter()
+            cli_main([os.path.join(GOLDEN, clip), "--transfer", "bgr",
+                      "--output_path", out, "--print-every", "0", *flags,
+                      *extra])
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            with open(out, "rb") as f, \
+                    open(os.path.join(GOLDEN, ref), "rb") as g:
+                same = f.read() == g.read()
+            log(f"golden: {clip} {' '.join(flags) or '(no preprocess flag)'}"
+                f" -> {'byte-identical to' if same else 'DIFFERS from'} "
+                f"{ref} ({wall:.1f} s, launches {launches})")
+            if not same:
+                raise AssertionError(f"{clip} {flags}: CSV differs from "
+                                     f"{ref}")
+            # Every path launches conv_block per[1] times a batch.
+            batches = max(launches["conv_block"] // per[1], 1)
+            check_launches(f"golden {clip} {flags}", launches,
+                           per_batch(batches, *per))
 
 
-def main() -> int:
+def _child_pids() -> list[int]:
+    """The processes whose parent is this one, from ``/proc``."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == me:
+            pids.append(int(entry))
+    return pids
+
+
+def _reap(pid: int, timeout: float) -> bool:
+    """Wait up to ``timeout`` seconds for child ``pid`` to end; reap it."""
+    deadline = time.monotonic() + timeout
+    while not os.waitpid(pid, os.WNOHANG)[0]:
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def stop_children() -> None:
+    """Stop every process this run started before it exits.
+
+    The golden phase's decode subprocesses are joined by their loaders;
+    their shared-memory rings start ``multiprocessing``'s resource
+    tracker, which would otherwise outlive this process for a moment, so
+    it is stopped here.  Any other child still running is logged,
+    terminated (killed if it ignores that) and reaped.
+    """
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    for proc in multiprocessing.active_children():
+        proc.terminate()
+        proc.join(5)
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    for pid in _child_pids():
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = "?"
+        log(f"stopping leftover child {pid}: {cmd[:120]}")
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            os.kill(pid, sig)  # an unreaped child still takes a signal
+            if _reap(pid, 5):
+                break
+    left = _child_pids()
+    if left:
+        raise RuntimeError(f"child processes {left} could not be stopped")
+
+
+def run() -> tuple[str, list[dict]]:
+    """Every phase; returns the card's line and the kernels' rows."""
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -433,17 +697,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         launches = phase_slice(dev, frames, wd)
         phase_host(dev, frames)
+        launches["resize_normalize"] = phase_preprocess(dev)[
+            "resize_normalize"]
         phase_golden(wd)
     rows = []
     for name, source, replaces in (
             ("conv1_block", "cut_detection_tpu_torch/csrc/conv1_block.cu",
              "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
             ("conv_block", "cut_detection_tpu_torch/csrc/conv_block.cu",
-             "cut_detection_tpu/ops/pallas/fused_block_pm.py:112")):
+             "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
+            ("resize_normalize",
+             "cut_detection_tpu_torch/csrc/resize_normalize.cu",
+             "cut_detection_tpu/ops/pallas/preprocess_kernel.py:74")):
         err, ms, plain_ms = kres[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    return card, rows
+
+
+def main() -> int:
+    try:
+        card, rows = run()
+    finally:
+        stop_children()
     log(card)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

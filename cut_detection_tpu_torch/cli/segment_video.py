@@ -3,14 +3,17 @@
 Same flags and defaults as ``cut_detection_tpu/cli/segment_video.py``
 (reference segment_video.py:81-126).  The model runs on the CUDA device,
 or on the CPU with ``--cpu``; without a CUDA device and without ``--cpu``
-it stops with an error.  Options of the JAX CLI that the port does not
+it stops with an error.  ``--device-resize`` decodes at source
+resolution and resizes on the device, bit-exact with cv2;
+``--pallas-preprocess`` runs the fused resize + flip + /255 kernel there
+instead (float bilinear).  Options of the JAX CLI that the port does not
 run yet are refused when the arguments are parsed, never ignored:
 ``--precision`` other than float32, ``--transfer yuv420``,
-``--device-resize``, ``--pallas-preprocess``, ``--device-glue`` and
-``--profile``.  ``--transfer auto`` resolves to bgr.
+``--device-glue`` and ``--profile``.  ``--transfer auto`` resolves to bgr.
 
     python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
-        --transfer bgr [--output_path OUT.csv] [--cpu]
+        --transfer bgr [--device-resize [--pallas-preprocess]] \\
+        [--output_path OUT.csv] [--cpu]
 """
 
 from __future__ import annotations
@@ -62,9 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Host->device frame format.  Only bgr is ported; "
                         "auto resolves to bgr.")
     p.add_argument("--device-resize", action="store_true",
-                   help="Not yet ported.")
+                   help="Resize frames on the device (bit-exact cv2 "
+                        "emulation) instead of the host.")
     p.add_argument("--pallas-preprocess", action="store_true",
-                   help="Not yet ported.")
+                   help="Use the fused resize+normalize kernel (float "
+                        "bilinear fast path, implies on-device "
+                        "preprocessing).")
     p.add_argument("--model-dir", type=str, default=None,
                    help="Load a trained model triplet from this directory "
                         "instead of the bundled prod classifier.")
@@ -84,14 +90,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
+    if ns.transfer == "yuv420" and (ns.device_resize or ns.pallas_preprocess):
+        # The JAX CLI's parse-time exclusion, kept as it is.
+        parser.error("--transfer yuv420 cannot combine with "
+                     "--device-resize/--pallas-preprocess (YUV frames "
+                     "arrive at model resolution already); use "
+                     "--transfer auto or bgr")
     unported = []
     if ns.precision != "float32":
         unported.append(f"--precision {ns.precision}")
     if ns.transfer == "yuv420":
         unported.append("--transfer yuv420")
-    for flag in ("device_resize", "pallas_preprocess", "device_glue"):
-        if getattr(ns, flag):
-            unported.append("--" + flag.replace("_", "-"))
+    if ns.device_glue:
+        unported.append("--device-glue")
     if ns.profile is not None:
         unported.append("--profile")
     if unported:
@@ -142,6 +153,8 @@ def main(args=None) -> str:
         decode_process={"auto": "auto", "on": True,
                         "off": False}[ns.decode_process],
         transfer=ns.transfer,
+        device_resize=ns.device_resize,
+        pallas_preprocess=ns.pallas_preprocess,
         cache_path=ns.cache_scores,
     )
     return out_path

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every source in ``cut_detection_tpu_torch/csrc/`` into
 one shared library with a plain C interface, at first use, into
-``build/cut_detection_tpu_torch/`` beside the package.  The build is keyed
+``build/cut_detection_tpu_torch/`` beside the package: one ``nvcc`` per
+source, all started together, then one link.  The build is keyed
 on a hash of the sources and the flags: a stale library is rebuilt, a
 current one is loaded as it is.  The library is bound with ``ctypes``:
 each entry point takes its pointers and the CUDA stream as ``c_void_p``
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -31,7 +33,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 LIB_NAME = "libcutdet_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
+BUILD_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +46,8 @@ _SIGNATURES = {
     # x, w, bias, scale, offset, out, B, H, W, Cin, Cout, stream
     "cutdet_conv_block_f32": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, row_idx, row_w, col_idx, col_w, out, B, H, W, out_h, out_w, stream
+    "cutdet_resize_normalize": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -63,7 +69,7 @@ def _sources() -> list[str]:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -85,6 +91,36 @@ def _nvcc() -> str:
 
 def _lib_path() -> str:
     return os.path.join(BUILD_DIR, LIB_NAME)
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run ``cmds`` all at once and return their output in order; raise on
+    the first that fails.  None is left running on return or on raise."""
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
+    outs = [tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR) for _ in cmds]
+    procs = []
+    try:
+        for cmd, out in zip(cmds, outs):
+            procs.append(subprocess.Popen(cmd, stdout=out,
+                                          stderr=subprocess.STDOUT, text=True))
+        for cmd, proc, out in zip(cmds, procs, outs):
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 0))
+            if rc != 0:
+                out.seek(0)
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{out.read()}")
+        text = []
+        for out in outs:
+            out.seek(0)
+            text.append(out.read())
+        return "".join(text)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for out in outs:
+            out.close()
 
 
 def build() -> str:
@@ -109,14 +145,19 @@ def rebuild() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     srcs = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
+                         f"{os.getpid()}.o") for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(srcs, objs)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BuildInfo.log}")
+    BuildInfo.log = log
     os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(digest + "\n")

@@ -10,6 +10,13 @@ path), mirroring the reference's segment_video.py:20-77:
     max / argmax -> one preallocated device score buffer -> one fetch ->
     run-length table -> orphan glue -> adjacent merge -> CSV.
 
+With ``device_resize`` the frames decode at source resolution and the
+resize moves onto the device: the bit-exact cv2 emulation
+(``ops.resize``) ahead of the same folded net, or, with
+``pallas_preprocess``, the fused resize + flip + /255 kernel
+(``ops.kernels.resize_normalize``) ahead of an unfolded copy of the net,
+whose layer 1 then runs the f32 block kernel on RGB in [0, 1].
+
 Batches have one static shape (the last one is zero-padded; a valid
 mask drops the padding), and every batch writes its (conf, pred) into a
 device buffer sized from the video's frame count, so the loop keeps no
@@ -33,6 +40,7 @@ from cut_detection_tpu.data.video import (
     VideoFrameSource,
     batch_frames,
 )
+from cut_detection_tpu.geometry import reference_resize_dims
 from cut_detection_tpu.utils.profiling import ThroughputMeter
 from cut_detection_tpu_torch.models.assembly import (
     GluedNet,
@@ -40,6 +48,11 @@ from cut_detection_tpu_torch.models.assembly import (
     folded_input,
     load_default_net,
 )
+from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+    resize_normalize,
+)
+from cut_detection_tpu_torch.ops.preprocess import normalize_frames
+from cut_detection_tpu_torch.ops.resize import resize_bilinear
 from cut_detection_tpu_torch.segmentation.rle import Segmentation
 
 logger = logging.getLogger(__name__)
@@ -60,36 +73,58 @@ RESIZE = 256
 DECODE_CHUNK_FRAMES = 256
 PREFETCH_BATCHES = 2
 
-# Steps memoized per net, keyed weakly so a dropped net frees its step.
+# Steps memoized per (net, options), keyed weakly on the net so a dropped
+# net frees its steps.
 _STEP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def make_classify_step(net: GluedNet):
+def make_classify_step(net: GluedNet, *,
+                       device_resize: tuple[int, int] | None = None,
+                       pallas_preprocess: bool = False):
     """The device step: uint8 NHWC BGR ``[B, H, W, 3]`` on ``net.device``
     -> ``(conf f32 [B], pred int32 [B])`` on the same device.
 
-    The BGR flip and /255 are folded into layer 1's weights
-    (``fold_preprocess``), so the layer-1 kernel reads the raw pixels.
-    argmax ties go to the first index, like ``torch.max`` in the
-    reference.  Memoized per net; the folded copy's kernel arguments are
+    By default the frames are at model resolution, and the BGR flip and
+    /255 are folded into layer 1's weights (``fold_preprocess``), so the
+    layer-1 kernel reads the raw pixels.  ``device_resize=(out_h,
+    out_w)`` resizes them first, bit-exact with cv2 (``ops.resize``).
+    ``pallas_preprocess`` with ``device_resize`` runs the fused resize +
+    flip + /255 kernel instead (float bilinear, not bit-exact with cv2)
+    and feeds its f32 RGB to an unfolded net.  argmax ties go to the
+    first index, like ``torch.max`` in the reference.
+
+    Memoized per (net, options), as the JAX step is: the folded and the
+    unfolded copies are distinct nets.  Each copy's kernel arguments are
     computed once, here, not in every step.
     """
-    step = _STEP_CACHE.get(net)
-    if step is not None:
-        return step
+    if device_resize is not None:
+        device_resize = tuple(int(d) for d in device_resize)
+    key = (device_resize, bool(pallas_preprocess))
+    per_net = _STEP_CACHE.get(net)
+    if per_net is not None and key in per_net:
+        return per_net[key]
+    fold = not pallas_preprocess
     # The step must not hold a strong reference to its own weak key.
-    folded = GluedNet(net.model_params)
-    folded.load_state_dict(fold_preprocess(net.state_dict()))
-    folded.to(net.device)
-    for layer in folded.conv.conv_layers:
+    frozen = GluedNet(net.model_params)
+    state = net.state_dict()
+    frozen.load_state_dict(fold_preprocess(state) if fold else state)
+    frozen.to(net.device)
+    for layer in frozen.conv.conv_layers:
         layer.freeze()
 
     @torch.inference_mode()
     def step(frames_u8: torch.Tensor):
-        logits = folded(folded_input(frames_u8))
+        x = frames_u8
+        if device_resize is not None and pallas_preprocess:
+            x = resize_normalize(x.contiguous(), *device_resize)
+        else:
+            if device_resize is not None:
+                x = resize_bilinear(x, *device_resize, exact=True)
+            x = folded_input(x) if fold else normalize_frames(x)
+        logits = frozen(x)
         return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
 
-    _STEP_CACHE[net] = step
+    _STEP_CACHE.setdefault(net, {})[key] = step
     return step
 
 
@@ -131,21 +166,23 @@ def available_decoder() -> str | None:
     return "native" if native_video.available() else None
 
 
-def _make_source(input_path: str, *, decode_workers: int, decoder: str):
-    """The in-process decode source (cv2 or the native libav decoder)."""
+def _make_source(input_path: str, *, resize: int | None,
+                 decode_workers: int, decoder: str):
+    """The in-process decode source (cv2 or the native libav decoder);
+    ``resize=None`` yields frames at source resolution."""
     if decoder == "auto":
         from cut_detection_tpu.data import native_video
 
         decoder = "native" if native_video.available() else "cv2"
     if decode_workers > 1:
         return ParallelVideoReader(
-            input_path, resize=RESIZE, num_threads=decode_workers,
+            input_path, resize=resize, num_threads=decode_workers,
             chunk_frames=DECODE_CHUNK_FRAMES, backend=decoder)
     if decoder == "native":
         from cut_detection_tpu.data.native_video import NativeVideoSource
 
-        return NativeVideoSource(input_path, resize=RESIZE)
-    return VideoFrameSource(input_path, resize=RESIZE)
+        return NativeVideoSource(input_path, resize=resize)
+    return VideoFrameSource(input_path, resize=resize)
 
 
 def _load_cached(cache_path: str, frame_limit, batch_size: int):
@@ -186,6 +223,8 @@ def classify_video(
     decoder: str = "cv2",
     decode_process: bool | str = "auto",
     transfer: str = "auto",
+    device_resize: bool = False,
+    pallas_preprocess: bool = False,
 ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """Decode + classify; return per-frame ``(conf, pred, stats)``.
 
@@ -194,6 +233,10 @@ def classify_video(
     segment_video.py: width 256, batch 128, a log line every 50 batches,
     and the ``frame_limit`` break *after* the batch that crosses the
     limit (:53-58).
+
+    With ``device_resize`` or ``pallas_preprocess`` the frames decode at
+    source resolution and are resized on the device to the reference's
+    size (width 256); see :func:`make_classify_step`.
     """
     if cache_path and os.path.isfile(cache_path):
         cached = _load_cached(cache_path, frame_limit, batch_size)
@@ -208,11 +251,17 @@ def classify_video(
         logger.info("Loaded default classifier.")
     device = net.device
 
+    on_device_preprocess = device_resize or pallas_preprocess
+    if transfer == "yuv420" and on_device_preprocess:
+        raise ValueError(
+            "transfer='yuv420' can't combine with on-device resize "
+            "(YUV frames arrive at model resolution already)")
     if transfer == "auto":
         logger.info("transfer=auto resolved to bgr (yuv420 is not yet "
                     "ported)")
     transfer = resolve_transfer(transfer)
 
+    resize = None if on_device_preprocess else RESIZE
     if _resolve_decode_process(decode_process, device):
         from cut_detection_tpu.data.shm_loader import ShmDecodeLoader
 
@@ -220,7 +269,7 @@ def classify_video(
         # decoder recycles, so take copies.  On CUDA the synchronous
         # host->device copy has left the slot when it returns.
         source = ShmDecodeLoader(
-            input_path, batch_size=batch_size, resize=RESIZE,
+            input_path, batch_size=batch_size, resize=resize,
             decode_workers=decode_workers,
             decode_chunk_frames=DECODE_CHUNK_FRAMES, decoder=decoder,
             copy_out=device.type == "cpu", transfer=transfer)
@@ -228,15 +277,22 @@ def classify_video(
     else:
         from cut_detection_tpu.data.loader import PrefetchLoader
 
-        source = _make_source(input_path, decode_workers=decode_workers,
-                              decoder=decoder)
+        source = _make_source(input_path, resize=resize,
+                              decode_workers=decode_workers, decoder=decoder)
         batches = PrefetchLoader(batch_frames(source, batch_size),
                                  depth=PREFETCH_BATCHES)
 
+    dr = None
+    if on_device_preprocess:
+        new_w, new_h = reference_resize_dims(source.video_info["width"],
+                                             source.video_info["height"],
+                                             RESIZE)
+        dr = (new_h, new_w)
     conf_np, pred_np, stats = classify_batches(
         batches, net, batch_size=batch_size,
         length=int(source.video_info["length"]), frame_limit=frame_limit,
-        print_every=print_every)
+        print_every=print_every, device_resize=dr,
+        pallas_preprocess=pallas_preprocess)
     stats.decode_failures = getattr(source, "frames_failed", 0)
 
     if cache_path:
@@ -254,14 +310,17 @@ def classify_video(
 def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
                      length: int = 0, frame_limit: int | None = None,
                      print_every: int = 50,
+                     device_resize: tuple[int, int] | None = None,
+                     pallas_preprocess: bool = False,
                      ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """The device loop of :func:`classify_video` over decoded batches.
 
     ``batches`` yields ``(uint8 [batch_size, H, W, 3] BGR, valid)`` as
     ``cut_detection_tpu.data.video.batch_frames`` does; ``length`` (the
     expected frame count) sizes the device score buffer.  The batches'
-    ``close()``, when they have one, runs on exit.  Returns the valid
-    frames' ``(conf, pred, stats)``.
+    ``close()``, when they have one, runs on exit.  ``device_resize`` and
+    ``pallas_preprocess`` choose the step (:func:`make_classify_step`).
+    Returns the valid frames' ``(conf, pred, stats)``.
     """
     device = net.device
     meter = ThroughputMeter(warmup_items=batch_size)
@@ -269,7 +328,8 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     valids: list[int] = []
     stats = PipelineStats()
     try:
-        step = make_classify_step(net)
+        step = make_classify_step(net, device_resize=device_resize,
+                                  pallas_preprocess=pallas_preprocess)
         # One score buffer on the device, sized from the expected frame
         # count (doubled whenever a container under-reports it).
         n_batches = max(1, -(-length // batch_size))
@@ -346,6 +406,8 @@ def segment_video_file(
     decoder: str = "cv2",
     decode_process: bool | str = "auto",
     transfer: str = "auto",
+    device_resize: bool = False,
+    pallas_preprocess: bool = False,
 ) -> tuple[str, Segmentation, PipelineStats]:
     """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
 
@@ -358,7 +420,8 @@ def segment_video_file(
         input_path, net, device=device, batch_size=batch_size,
         frame_limit=frame_limit, print_every=print_every,
         decode_workers=decode_workers, cache_path=cache_path,
-        decoder=decoder, decode_process=decode_process, transfer=transfer)
+        decoder=decoder, decode_process=decode_process, transfer=transfer,
+        device_resize=device_resize, pallas_preprocess=pallas_preprocess)
     seg = _smooth(conf, pred, base_threshold, blank_threshold)
     if output_path is None:
         output_path = os.path.splitext(input_path)[0] + "_segments.csv"

@@ -9,6 +9,10 @@ JAX tests' own: 1e-4 for layer 1, 1e-5 for the f32 mid-stack block
 against ``apply_conv_block``, 2e-5 per bf16 block and 5e-5 chained.
 """
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,6 +210,73 @@ def test_build_recompiles_only_a_stale_library(monkeypatch, tmp_path, stamp):
     got = _build.build()
     assert (got, calls) == ((str(lib), []) if stamp == "current"
                             else ("rebuilt", [1]))
+
+
+def _fake_nvcc(monkeypatch, tmp_path, fail: str = "") -> None:
+    """An ``nvcc`` on PATH that writes its ``-o`` file and prints one line
+    per call, and fails on a source named ``fail``."""
+    script = tmp_path / "bin" / "nvcc"
+    script.parent.mkdir()
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "out = args[args.index('-o') + 1]\n"
+        f"if {fail!r} and any(a.endswith({fail!r}) for a in args):\n"
+        "    print('error in', args[-1]); sys.exit(2)\n"
+        "open(out, 'w').close()\n"
+        "print('built', out.rsplit('/', 1)[-1].split('.')[0])\n")
+    script.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{script.parent}{os.pathsep}"
+                               f"{os.environ['PATH']}")
+
+
+def test_rebuild_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One compile per source, then one link: the library and its stamp
+    are written, the objects removed, and every call's output kept."""
+    _fake_nvcc(monkeypatch, tmp_path)
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
+    path = _build.rebuild()
+    assert path == str(build_dir / _build.LIB_NAME)
+    assert sorted(os.listdir(build_dir)) == [_build.LIB_NAME,
+                                             _build.LIB_NAME + ".sha256"]
+    stems = [os.path.basename(s).split(".")[0] for s in _build._sources()
+             if s.endswith(".cu")]
+    assert _build.BuildInfo.log.split() == (
+        [w for s in stems for w in ("built", s)]
+        + ["built", "libcutdet_kernels"])
+
+
+def test_rebuild_raises_on_a_failed_compile(monkeypatch, tmp_path):
+    """A source that fails to compile raises with nvcc's output, writes no
+    library and leaves no object behind."""
+    _fake_nvcc(monkeypatch, tmp_path, fail="conv_block.cu")
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
+    with pytest.raises(RuntimeError, match="error in .*conv_block.cu"):
+        _build.rebuild()
+    assert os.listdir(build_dir) == []
+
+
+def test_run_all_stops_the_others_when_one_fails(monkeypatch, tmp_path):
+    """Every command starts at once; when one fails, those still running
+    are stopped before the error is raised."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    started = []
+    popen = subprocess.Popen
+
+    def track(*args, **kwargs):
+        started.append(popen(*args, **kwargs))
+        return started[-1]
+
+    monkeypatch.setattr(_build.subprocess, "Popen", track)
+    fail = [sys.executable, "-c", "import sys; print('boom'); sys.exit(3)"]
+    slow = [sys.executable, "-c", "import time; time.sleep(60)"]
+    with pytest.raises(RuntimeError, match="boom"):
+        _build._run_all([fail, slow])
+    assert len(started) == 2
+    assert all(p.poll() is not None for p in started)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -2,7 +2,8 @@
 JAX pipeline on the same videos.
 
 ``--cpu --transfer bgr`` is the byte-parity configuration: its CSVs must
-equal ``tests/golden/ref_segments*.csv`` and the JAX CLI's output.
+equal ``tests/golden/ref_segments*.csv`` and the JAX CLI's output, with
+and without ``--device-resize [--pallas-preprocess]``.
 """
 
 import os
@@ -10,8 +11,11 @@ import os
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from cut_detection_tpu.data.video import batch_frames
+from cut_detection_tpu.models.assembly import load_default_net as jax_default
+from cut_detection_tpu.pipeline import make_classify_step as jax_make_step
 from cut_detection_tpu.pipeline import classify_video as jax_classify
 from cut_detection_tpu.pipeline import segment_video_file as jax_segment
 from cut_detection_tpu.segmentation import glue as jax_glue
@@ -26,6 +30,7 @@ from cut_detection_tpu_torch.pipeline import (
     available_decoder,
     classify_batches,
     classify_video,
+    make_classify_step,
     resolve_transfer,
     segment_video_file,
 )
@@ -58,6 +63,69 @@ def test_cli_matches_golden_csv(tmp_path, clip, ref):
                     "--output_path", out, "--print-every", "0"])
     assert got == out
     assert _read(out) == _read(os.path.join(GOLDEN, ref))
+
+
+@pytest.mark.parametrize("flags", [["--device-resize"],
+                                   ["--device-resize", "--pallas-preprocess"],
+                                   ["--pallas-preprocess"]])
+@pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
+                                      ("clip_odd.mp4",
+                                       "ref_segments_odd.csv")])
+def test_cli_on_device_preprocess_matches_golden_csv(tmp_path, clip, ref,
+                                                     flags):
+    """Frames decode at source resolution (320x180 and 427x240) and are
+    resized by the step; ``--pallas-preprocess`` alone implies the
+    resize, as in the JAX CLI."""
+    out = str(tmp_path / "out.csv")
+    cli.main([os.path.join(GOLDEN, clip), "--cpu", "--transfer", "bgr",
+              "--output_path", out, "--print-every", "0", *flags])
+    assert _read(out) == _read(os.path.join(GOLDEN, ref))
+
+
+@pytest.mark.parametrize("pallas_preprocess", [False, True])
+def test_step_on_device_preprocess_matches_jax(net, pallas_preprocess):
+    """The step on 4 seeded 360x640 frames against the JAX step with the
+    same options: max logit within 1e-4, 0 argmax flips.  The JAX Pallas
+    kernel runs in interpret mode."""
+    frames = np.random.default_rng(5).integers(0, 256, (4, 360, 640, 3),
+                                               dtype=np.uint8)
+    jnet, _ = jax_default()
+    jstep = jax_make_step(jnet, device_resize=(144, 256),
+                          pallas_preprocess=pallas_preprocess)
+    with pltpu.force_tpu_interpret_mode():
+        jconf, jpred = (np.asarray(a) for a in jstep(jnet.bundle, frames))
+    step = make_classify_step(net, device_resize=(144, 256),
+                              pallas_preprocess=pallas_preprocess)
+    conf, pred = step(torch.from_numpy(frames))
+    np.testing.assert_array_equal(pred.numpy(), jpred)
+    np.testing.assert_allclose(conf.numpy(), jconf, rtol=0, atol=1e-4)
+
+
+def test_step_memo_is_per_option(net):
+    """One step per (net, options): the folded and the unfolded nets are
+    never shared between options."""
+    options = [{}, {"device_resize": (144, 256)},
+               {"device_resize": (144, 256), "pallas_preprocess": True},
+               {"device_resize": (143, 256)}]
+    steps = [make_classify_step(net, **o) for o in options]
+    assert len({id(s) for s in steps}) == len(options)
+    for o, s in zip(options, steps):
+        assert make_classify_step(net, **o) is s
+    assert make_classify_step(net, device_resize=[144, 256]) is steps[1]
+    other = load_default_net(CPU)[0]
+    assert make_classify_step(other) is not steps[0]
+
+
+def test_device_resize_with_decode_subprocess_matches_jax(synthetic_video,
+                                                          tmp_path, net):
+    """The shared-memory ring carries source-resolution batches."""
+    ours, theirs = str(tmp_path / "ours.csv"), str(tmp_path / "jax.csv")
+    segment_video_file(synthetic_video, ours, net=net, batch_size=64,
+                       print_every=0, decode_process=True, transfer="bgr",
+                       device_resize=True)
+    jax_segment(synthetic_video, theirs, batch_size=64, print_every=0,
+                transfer="bgr", device_resize=True)
+    assert _read(ours) == _read(theirs)
 
 
 @pytest.mark.parametrize("decode_process", [False, True])
@@ -205,14 +273,25 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
 
 @pytest.mark.parametrize("flags", [
     ["--precision", "bfloat16"], ["--precision", "int8_mxu"],
-    ["--transfer", "yuv420"], ["--device-resize"], ["--pallas-preprocess"],
-    ["--device-glue"], ["--profile", "trace_dir"],
+    ["--transfer", "yuv420"], ["--device-glue"], ["--profile", "trace_dir"],
 ])
 def test_cli_refuses_unported_flags(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         cli.main(["clip.mp4", "--cpu", *flags])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--device-resize", "--pallas-preprocess"])
+def test_cli_refuses_yuv420_with_on_device_preprocess(capsys, flag):
+    """The JAX CLI's parse-time exclusion; the pipeline refuses it too."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["clip.mp4", "--cpu", "--transfer", "yuv420", flag])
+    assert exc.value.code == 2
+    assert "cannot combine" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="can't combine"):
+        classify_video(os.path.join(GOLDEN, "clip.mp4"), device=CPU,
+                       transfer="yuv420", device_resize=True)
 
 
 def test_cli_without_cuda_needs_cpu_flag(capsys, monkeypatch):
