@@ -6,13 +6,16 @@ or on the CPU with ``--cpu``; without a CUDA device and without ``--cpu``
 it stops with an error.  ``--device-resize`` decodes at source
 resolution and resizes on the device, bit-exact with cv2;
 ``--pallas-preprocess`` runs the fused resize + flip + /255 kernel there
-instead (float bilinear).  Options of the JAX CLI that the port does not
-run yet are refused when the arguments are parsed, never ignored:
-``--precision`` other than float32, ``--transfer yuv420``,
-``--device-glue`` and ``--profile``.  ``--transfer auto`` resolves to bgr.
+instead (float bilinear).  ``--precision`` takes ``float32`` (the
+reference-parity CSVs), ``bfloat16`` and ``bfloat16_full``.  Options of
+the JAX CLI that the port does not run yet are refused when the
+arguments are parsed, never ignored: the quantized precision rungs,
+``--transfer yuv420``, ``--device-glue`` and ``--profile``.
+``--transfer auto`` resolves to bgr.
 
     python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
         --transfer bgr [--device-resize [--pallas-preprocess]] \\
+        [--precision {float32,bfloat16,bfloat16_full}] \\
         [--output_path OUT.csv] [--cpu]
 """
 
@@ -85,11 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Not yet ported.")
     p.add_argument("--precision", choices=list(PRECISION_CHOICES),
                    default="float32",
-                   help="Only float32 (reference-parity CSVs) is ported.")
+                   help="float32 guarantees reference-parity CSVs; "
+                        "bfloat16 uses bf16 operands; bfloat16_full also "
+                        "keeps activations bf16.  The quantized rungs are "
+                        "not yet ported.")
     return p
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
+    from cut_detection_tpu_torch.models.assembly import PORTED_PRECISIONS
+
     if ns.transfer == "yuv420" and (ns.device_resize or ns.pallas_preprocess):
         # The JAX CLI's parse-time exclusion, kept as it is.
         parser.error("--transfer yuv420 cannot combine with "
@@ -97,7 +105,7 @@ def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
                      "arrive at model resolution already); use "
                      "--transfer auto or bgr")
     unported = []
-    if ns.precision != "float32":
+    if ns.precision not in PORTED_PRECISIONS:
         unported.append(f"--precision {ns.precision}")
     if ns.transfer == "yuv420":
         unported.append("--transfer yuv420")
@@ -135,7 +143,8 @@ def main(args=None) -> str:
 
     net = None
     if ns.model_dir:
-        net, _ = load_triplet_or_default(ns.model_dir, ns.model_name, device)
+        net, _ = load_triplet_or_default(ns.model_dir, ns.model_name, device,
+                                         ns.precision)
         logging.info("Loaded model triplet %s from %s", ns.model_name,
                      ns.model_dir)
     out_path, _, _ = segment_video_file(
@@ -156,6 +165,7 @@ def main(args=None) -> str:
         device_resize=ns.device_resize,
         pallas_preprocess=ns.pallas_preprocess,
         cache_path=ns.cache_scores,
+        precision=ns.precision,
     )
     return out_path
 

@@ -1,9 +1,14 @@
 // Shared helpers of the CNN-block kernels (conv1_block.cu, conv_block.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace cutdet {
+
+using bf16 = __nv_bfloat16;
 
 // A pooled output row r reads conv rows 3r..3r+2, which read input rows
 // 3r-1..3r+3 (zero 'same' padding): five staged input rows per block.
@@ -24,6 +29,37 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // version computes it (no FMA contraction).
 __device__ __forceinline__ float bn_affine(float m, float s, float t) {
   return __fadd_rn(__fmul_rn(m, s), t);
+}
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+// v rounded to T (nearest even), as float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// *p as an operand of type Op, widened to float: rounded only where its
+// own type is wider than Op.
+template <typename Op, typename T>
+__device__ __forceinline__ float operand(const T* p) {
+  if constexpr (std::is_same_v<Op, T>) {
+    return load(p);
+  } else {
+    return round_to<Op>(load(p));
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 }  // namespace cutdet

@@ -1,19 +1,30 @@
 // Layer-1 CNN block, fused: conv3x3 (zero pad 1) + bias -> ReLU ->
 // maxpool 3x3 stride 3 (floor) -> eval-BN affine, from raw uint8 BGR.
 //
-// Replaces the Pallas kernel conv1_pool_fused
-// (cut_detection_tpu/ops/pallas/conv1_kernel.py), the float32 instance:
-// f32 pixels, weights, accumulation and output.  Feed it the
-// preprocess-folded kernel (flip + /255 folded into the weights), so the
-// raw pixels are the input.
+// One source, templated on the weight, activation and output types; two
+// instances:
+//   f32   replaces the Pallas kernel conv1_pool_fused
+//         (cut_detection_tpu/ops/pallas/conv1_kernel.py): f32 pixels,
+//         weights, accumulation and output — layer 1 of the float32 path,
+//         and of the bfloat16 rung with its weights rounded to bf16 (uint8
+//         pixels are exact in bf16, so that is the rung's exact numerics);
+//   bf16  replaces the Pallas kernel fused_conv1_pool
+//         (cut_detection_tpu/ops/pallas/fused_conv1.py, "K1"): bf16
+//         weights, f32 accumulation, relu(acc + bias) rounded to bf16
+//         before the pool, the BN affine in f32, a bf16 output — layer 1
+//         of the bfloat16_full rung.  Unlike K1 it takes any H >= 3.
+// Both take the preprocess-folded kernel (flip + /255 folded into the
+// weights), so the raw pixels are the input.
 //
 // What bounds it on an H100: per 144x256 frame the block reads ~110 KB of
-// uint8 and writes ~0.78 MB of pooled f32, but does 27*48 MACs for each of
-// the 144*255 conv pixels (~95 MFLOP/frame) — about 100 FLOP per byte,
+// uint8 and writes ~0.78 MB of pooled f32 (half in bf16), but does 27*48
+// MACs for each of the 144*255 conv pixels (~95 MFLOP/frame) — about 100
+// FLOP per byte,
 // far above the card's f32 balance point (67 TFLOP/s over 3.35 TB/s), so
-// the f32 CUDA cores bound it, not memory.  The unfused version also
-// round-trips the [144,256,48] f32 conv output (7 MB/frame) through
-// device memory; this kernel never writes it.
+// the f32 CUDA cores bound it, not memory (bf16 weights and output change
+// the bytes, not the FMAs).  The unfused version also round-trips the
+// [144,256,48] conv output (7 MB/frame in f32) through device memory;
+// this kernel never writes it.
 //
 // The simple design: one block per (pooled row, frame).  The five input
 // rows that row needs are staged once in shared memory as f32, zero-padded
@@ -22,7 +33,8 @@
 // walks pooled columns; per (dy, c, cy) five staged pixels feed nine FMAs
 // (the 3x3 conv outputs under one pool window).  Pool windows do not
 // overlap (stride = window), so no conv value is computed twice.  No
-// tensor cores: this is the exact-f32 path.
+// tensor cores: bf16 weights times integer pixels are exact in f32, so
+// both instances run plain f32 FMAs.
 #include <cstdint>
 
 #include <math_constants.h>
@@ -34,12 +46,24 @@ namespace {
 constexpr int kCin = 3;                 // BGR
 constexpr int kTaps = 9 * kCin;         // 3x3 window x channels
 
+template <typename Wt, typename Act, typename Out>
+struct Instance {
+  using w_t = Wt;
+  using act_t = Act;
+  using out_t = Out;
+};
+
+using cutdet::bf16;
+using F32 = Instance<float, float, float>;
+using Bf16 = Instance<bf16, bf16, bf16>;
+
+template <typename I>
 __global__ void conv1_block_kernel(const uint8_t* __restrict__ x,
-                                   const float* __restrict__ w,
+                                   const typename I::w_t* __restrict__ w,
                                    const float* __restrict__ bias,
                                    const float* __restrict__ scale,
                                    const float* __restrict__ offset,
-                                   float* __restrict__ out,
+                                   typename I::out_t* __restrict__ out,
                                    int H, int W, int Cout, int Hp, int Wp) {
   extern __shared__ float tile[];  // [kRowsStaged][W + 2][kCin]
   const int r = blockIdx.x;        // pooled row
@@ -67,13 +91,14 @@ __global__ void conv1_block_kernel(const uint8_t* __restrict__ x,
 
   float wr[kTaps];  // HWIO row (dy*3 + dx)*kCin + c of channel o
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) wr[k] = w[k * Cout + o];
+  for (int k = 0; k < kTaps; ++k) wr[k] = cutdet::load(w + k * Cout + o);
   const float bo = bias[o];
   const float so = scale[o];
   const float to = offset[o];
   __syncthreads();
 
-  float* orow = out + (static_cast<size_t>(b) * Hp + r) * Wp * Cout;
+  typename I::out_t* orow =
+      out + (static_cast<size_t>(b) * Hp + r) * Wp * Cout;
   for (int px = threadIdx.y; px < Wp; px += blockDim.y) {
     float acc[3][3];
 #pragma unroll
@@ -104,17 +129,17 @@ __global__ void conv1_block_kernel(const uint8_t* __restrict__ x,
     for (int cy = 0; cy < 3; ++cy)
 #pragma unroll
       for (int cx = 0; cx < 3; ++cx) m = fmaxf(m, __fadd_rn(acc[cy][cx], bo));
-    // relu(max) == max(relu): the ReLU commutes with the pool.
-    orow[px * Cout + o] = cutdet::bn_affine(fmaxf(m, 0.f), so, to);
+    // relu(max) == max(relu): the ReLU commutes with the pool, and so
+    // does the rounding to the activation type, which is monotonic.
+    const float a = cutdet::round_to<typename I::act_t>(fmaxf(m, 0.f));
+    cutdet::store(orow + px * Cout + o, cutdet::bn_affine(a, so, to));
   }
 }
 
-}  // namespace
-
-extern "C" int cutdet_conv1_block(const void* x, const void* w,
-                                  const void* bias, const void* scale,
-                                  const void* offset, void* out, int B, int H,
-                                  int W, int Cout, void* stream) {
+template <typename I>
+int launch(const void* x, const void* w, const void* bias, const void* scale,
+           const void* offset, void* out, int B, int H, int W, int Cout,
+           void* stream) {
   const int Hp = H / 3;
   const int Wp = (W - 3) / 3 + 1;
   if (B <= 0 || B > 65535 || H < 3 || W < 3 || Cout <= 0 || Cout > 1024) {
@@ -126,15 +151,32 @@ extern "C" int cutdet_conv1_block(const void* x, const void* w,
   const dim3 grid(Hp, B);
   const size_t smem =
       sizeof(float) * cutdet::kRowsStaged * (W + 2) * kCin;
-  cudaError_t err = cutdet::allow_smem(conv1_block_kernel, smem);
+  cudaError_t err = cutdet::allow_smem(conv1_block_kernel<I>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv1_block_kernel<<<grid, block, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const float*>(w),
+  conv1_block_kernel<I><<<grid, block, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x),
+      static_cast<const typename I::w_t*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(scale),
-      static_cast<const float*>(offset), static_cast<float*>(out), H, W,
-      Cout, Hp, Wp);
+      static_cast<const float*>(offset),
+      static_cast<typename I::out_t*>(out), H, W, Cout, Hp, Wp);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int cutdet_conv1_block(const void* x, const void* w,
+                                  const void* bias, const void* scale,
+                                  const void* offset, void* out, int B, int H,
+                                  int W, int Cout, void* stream) {
+  return launch<F32>(x, w, bias, scale, offset, out, B, H, W, Cout, stream);
+}
+
+extern "C" int cutdet_conv1_block_bf16(const void* x, const void* w,
+                                       const void* bias, const void* scale,
+                                       const void* offset, void* out, int B,
+                                       int H, int W, int Cout, void* stream) {
+  return launch<Bf16>(x, w, bias, scale, offset, out, B, H, W, Cout, stream);
 }
 
 extern "C" const char* cutdet_error_string(int err) {

@@ -3,12 +3,20 @@
 //
 // Replaces the Pallas kernel fused_conv_block_pm
 // (cut_detection_tpu/ops/pallas/fused_block_pm.py).  One source,
-// templated on the operand type:
-//   float          true f32 operands and accumulation, no tensor cores —
-//                  the float32 path (layers 2 and 3 of the prod net);
-//   __nv_bfloat16  the Pallas kernel's numerics: bf16 operands, f32
+// templated on the types of the input, the weights, the operands (what
+// both are rounded to as they are read), the post-ReLU activation (what it
+// is rounded to before the pool) and the output.  Three instances:
+//   f32            f32 operands and accumulation, no tensor cores — the
+//                  float32 path (layers 2 and 3 of the prod net);
+//   bf16_out       the Pallas kernel's numerics: bf16 operands, f32
 //                  accumulation, relu(acc + bias) rounded to bf16 before
-//                  the pool, f32 output (its out_dtype=float32).
+//                  the pool, bf16 output (its default out_dtype) —
+//                  layers 2 and 3 of the bfloat16_full rung;
+//   bf16_operands  f32 input rounded to bf16 as it is staged, f32 weights
+//                  rounded to bf16 as they are read, f32 accumulation,
+//                  f32 activations with no rounding, f32 output — the
+//                  bfloat16 rung's conv2d_same(compute_dtype="bfloat16")
+//                  -> ReLU -> pool -> BN (layers.py:109-123).
 //
 // What bounds it on an H100: at the prod layer-2 shape (48x85x48 -> 16x28
 // x48) a frame needs 16*28*9 conv pixels x 9*48*48 MACs (~84 M MAC) against
@@ -22,8 +30,8 @@
 // owns one (output channel, pooled column) pair and keeps the 3x3 conv
 // outputs under its pool window in nine accumulators: per (dy, c) three
 // weights (read through L1, coalesced over the channel) and, per conv row,
-// five staged pixels feed nine FMAs.
-#include <cuda_bf16.h>
+// five staged pixels feed nine FMAs.  bf16 values are exact in f32, so
+// the rounded operands multiply exactly and the FMAs accumulate in f32.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -33,35 +41,29 @@ namespace {
 constexpr int kTilePx = 8;                  // pooled columns per block
 constexpr int kTileCols = 3 * kTilePx + 2;  // staged columns, with halo
 
-template <typename T>
-struct Operand;
-
-template <>
-struct Operand<float> {
-  static __device__ __forceinline__ float load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ float round_act(float v) { return v; }
+template <typename In, typename Wt, typename Op, typename Act, typename Out>
+struct Instance {
+  using in_t = In;
+  using w_t = Wt;
+  using op_t = Op;
+  using act_t = Act;
+  using out_t = Out;
 };
 
-template <>
-struct Operand<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ float round_act(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
+using cutdet::bf16;
+using F32 = Instance<float, float, float, float, float>;
+using Bf16Out = Instance<bf16, bf16, bf16, bf16, bf16>;
+using Bf16Operands = Instance<float, float, bf16, float, float>;
 
-template <typename T>
-__global__ void conv_block_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ w,
+template <typename I>
+__global__ void conv_block_kernel(const typename I::in_t* __restrict__ x,
+                                  const typename I::w_t* __restrict__ w,
                                   const float* __restrict__ bias,
                                   const float* __restrict__ scale,
                                   const float* __restrict__ offset,
-                                  float* __restrict__ out, int H, int W,
-                                  int Cin, int Cout, int Hp, int Wp) {
+                                  typename I::out_t* __restrict__ out, int H,
+                                  int W, int Cin, int Cout, int Hp, int Wp) {
+  using Op = typename I::op_t;
   extern __shared__ float tile[];  // [kRowsStaged][kTileCols][Cin]
   const int px0 = blockIdx.x * kTilePx;
   const int r = blockIdx.y;  // pooled row
@@ -73,7 +75,7 @@ __global__ void conv_block_kernel(const T* __restrict__ x,
   const int row_elems = kTileCols * Cin;
   const int col0 = 3 * px0 - 1;
 
-  const T* xb = x + static_cast<size_t>(b) * H * W * Cin;
+  const typename I::in_t* xb = x + static_cast<size_t>(b) * H * W * Cin;
   for (int i = tid; i < cutdet::kRowsStaged * row_elems; i += nthreads) {
     const int sr = i / row_elems;
     const int rem = i - sr * row_elems;
@@ -83,7 +85,7 @@ __global__ void conv_block_kernel(const T* __restrict__ x,
     const int xc = col0 + sc;
     float v = 0.f;
     if (y >= 0 && y < H && xc >= 0 && xc < W) {
-      v = Operand<T>::load(xb + (static_cast<size_t>(y) * W + xc) * Cin + c);
+      v = cutdet::operand<Op>(xb + (static_cast<size_t>(y) * W + xc) * Cin + c);
     }
     tile[i] = v;
   }
@@ -99,14 +101,16 @@ __global__ void conv_block_kernel(const T* __restrict__ x,
     for (int cx = 0; cx < 3; ++cx) acc[cy][cx] = 0.f;
 
   for (int dy = 0; dy < 3; ++dy) {
-    const T* wrow = w + static_cast<size_t>(dy * 3) * Cin * Cout + o;
+    const typename I::w_t* wrow =
+        w + static_cast<size_t>(dy * 3) * Cin * Cout + o;
     for (int c = 0; c < Cin; ++c) {
       // HWIO rows (dy*3 + dx)*Cin + c, dx = 0, 1, 2.
-      const float w0 = Operand<T>::load(wrow + static_cast<size_t>(c) * Cout);
+      const float w0 =
+          cutdet::operand<Op>(wrow + static_cast<size_t>(c) * Cout);
       const float w1 =
-          Operand<T>::load(wrow + static_cast<size_t>(Cin + c) * Cout);
+          cutdet::operand<Op>(wrow + static_cast<size_t>(Cin + c) * Cout);
       const float w2 =
-          Operand<T>::load(wrow + static_cast<size_t>(2 * Cin + c) * Cout);
+          cutdet::operand<Op>(wrow + static_cast<size_t>(2 * Cin + c) * Cout);
 #pragma unroll
       for (int cy = 0; cy < 3; ++cy) {
         // Staged columns 3*lpx .. 3*lpx+4 of staged row cy+dy.
@@ -127,13 +131,14 @@ __global__ void conv_block_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int cx = 0; cx < 3; ++cx) {
       const float z = fmaxf(__fadd_rn(acc[cy][cx], bo), 0.f);
-      m = fmaxf(m, Operand<T>::round_act(z));
+      m = fmaxf(m, cutdet::round_to<typename I::act_t>(z));
     }
-  out[((static_cast<size_t>(b) * Hp + r) * Wp + px) * Cout + o] =
-      cutdet::bn_affine(m, scale[o], offset[o]);
+  cutdet::store(
+      out + ((static_cast<size_t>(b) * Hp + r) * Wp + px) * Cout + o,
+      cutdet::bn_affine(m, scale[o], offset[o]));
 }
 
-template <typename T>
+template <typename I>
 int launch(const void* x, const void* w, const void* bias, const void* scale,
            const void* offset, void* out, int B, int H, int W, int Cin,
            int Cout, void* stream) {
@@ -147,33 +152,28 @@ int launch(const void* x, const void* w, const void* bias, const void* scale,
   const dim3 grid((Wp + kTilePx - 1) / kTilePx, Hp, B);
   const size_t smem =
       sizeof(float) * cutdet::kRowsStaged * kTileCols * static_cast<size_t>(Cin);
-  cudaError_t err = cutdet::allow_smem(conv_block_kernel<T>, smem);
+  cudaError_t err = cutdet::allow_smem(conv_block_kernel<I>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_block_kernel<T><<<grid, block, smem,
+  conv_block_kernel<I><<<grid, block, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const typename I::in_t*>(x),
+      static_cast<const typename I::w_t*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(scale),
-      static_cast<const float*>(offset), static_cast<float*>(out), H, W, Cin,
-      Cout, Hp, Wp);
+      static_cast<const float*>(offset),
+      static_cast<typename I::out_t*>(out), H, W, Cin, Cout, Hp, Wp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cutdet_conv_block_f32(const void* x, const void* w,
-                                     const void* bias, const void* scale,
-                                     const void* offset, void* out, int B,
-                                     int H, int W, int Cin, int Cout,
-                                     void* stream) {
-  return launch<float>(x, w, bias, scale, offset, out, B, H, W, Cin, Cout,
-                       stream);
-}
+#define CUTDET_CONV_BLOCK(NAME, INSTANCE)                                   \
+  extern "C" int NAME(const void* x, const void* w, const void* bias,        \
+                      const void* scale, const void* offset, void* out,      \
+                      int B, int H, int W, int Cin, int Cout, void* stream) { \
+    return launch<INSTANCE>(x, w, bias, scale, offset, out, B, H, W, Cin,    \
+                            Cout, stream);                                   \
+  }
 
-extern "C" int cutdet_conv_block_bf16(const void* x, const void* w,
-                                      const void* bias, const void* scale,
-                                      const void* offset, void* out, int B,
-                                      int H, int W, int Cin, int Cout,
-                                      void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, scale, offset, out, B, H, W, Cin,
-                               Cout, stream);
-}
+CUTDET_CONV_BLOCK(cutdet_conv_block_f32, F32)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_out, Bf16Out)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_operands, Bf16Operands)

@@ -3,8 +3,9 @@
 Counterpart of ``cut_detection_tpu/models/assembly.py`` (``GluedNet``
 ``:38-119``, ``fold_preprocess`` ``:140-157``, ``folded_input``
 ``:160-170``, the loaders ``:243-285, 307-327``); reference
-frameID/net.py:193-233.  Float32 only: the other precision rungs are not
-ported yet (ROADMAP.md), and the CLI refuses them.
+frameID/net.py:193-233.  The precision rungs ``float32``, ``bfloat16``
+and ``bfloat16_full`` are ported (``PORTED_PRECISIONS``); the quantized
+rungs are not yet (ROADMAP.md), and the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from cut_detection_tpu_torch.models.frame_conv import (
     FrameLinearNet,
 )
 
+PORTED_PRECISIONS = ("float32", "bfloat16", "bfloat16_full")
+
 # The bundled prod classifier ships inside the JAX package.
 _PROD_NET_DIR = os.path.join(os.path.dirname(cut_detection_tpu.__file__),
                              "prod_net")
@@ -32,18 +35,34 @@ class GluedNet(nn.Module):
     """Conv backbone + FC head (frameID/net.py:215), eval mode.
 
     ``net(x)`` takes NHWC float32 frames in [0, 1] (RGB) and returns
-    ``[B, n_class]`` logits.  BN uses the checkpoint's running statistics.
-    A net loaded with a ``fold_preprocess``'d state dict takes raw uint8
-    BGR frames instead (``folded_input``).
+    ``[B, n_class]`` f32 logits.  BN uses the checkpoint's running
+    statistics.  A net loaded with a ``fold_preprocess``'d state dict takes
+    raw uint8 BGR frames instead (``folded_input``).  ``precision`` is a
+    property of the net, not of its weights: the same state dict loads at
+    every rung.
     """
 
-    def __init__(self, model_params: ModelParams):
+    def __init__(self, model_params: ModelParams,
+                 precision: str = "float32"):
         super().__init__()
+        if precision not in PORTED_PRECISIONS:
+            raise ValueError(f"precision {precision!r} is not yet ported "
+                             f"(ported: {', '.join(PORTED_PRECISIONS)})")
         self.model_params = model_params
-        self.conv = FrameConvNet(model_params.conv_config())
-        self.linear = FrameLinearNet(model_params.linear_config())
+        self.precision = precision
+        self.conv = FrameConvNet(model_params.conv_config(),
+                                 self.compute_dtype)
+        self.linear = FrameLinearNet(model_params.linear_config(),
+                                     self.compute_dtype)
         self.eval()
         self.requires_grad_(False)
+
+    @property
+    def compute_dtype(self):
+        """None (float32), ``"bfloat16"`` (bf16 operands, f32
+        activations) or ``"bfloat16_full"`` (bf16 operands and
+        activations), as the JAX ``GluedNet`` names them."""
+        return None if self.precision == "float32" else self.precision
 
     @property
     def device(self) -> torch.device:
@@ -62,7 +81,7 @@ class GluedNet(nn.Module):
                 f"pool={mp.avg_pool_size}, "
                 f"fc={mp.linear_layers}x{mp.linear_size}->"
                 f"{mp.linear_output_size}, params={self.num_params():,}, "
-                f"device={self.device})")
+                f"precision={self.precision}, device={self.device})")
 
 
 def fold_preprocess(state_dict: dict) -> dict:
@@ -91,9 +110,9 @@ def folded_input(frames_u8: torch.Tensor) -> torch.Tensor:
     return frames_u8.contiguous()
 
 
-def _glue(model_params: ModelParams, state_dict: dict,
-          device) -> GluedNet:
-    net = GluedNet(model_params)
+def _glue(model_params: ModelParams, state_dict: dict, device,
+          precision: str) -> GluedNet:
+    net = GluedNet(model_params, precision)
     net.load_state_dict(state_dict)
     return net.to(device)
 
@@ -104,7 +123,7 @@ def _load_pt(path: str, prefix: str) -> dict:
 
 
 def load_and_glue_nets(param_file: str, conv_file: str, linear_file: str,
-                       device):
+                       device, precision: str = "float32"):
     """Load a checkpoint triplet; return ``(net, model_params_dict)``.
 
     ``.npz`` bundles are converted with ``params_from_jax``; the
@@ -118,15 +137,15 @@ def load_and_glue_nets(param_file: str, conv_file: str, linear_file: str,
     else:
         sd = params_from_jax({"conv": load_bundle(conv_file),
                               "linear": load_bundle(linear_file)})
-    return _glue(model_params, sd, device), model_params.to_dict()
+    return _glue(model_params, sd, device, precision), model_params.to_dict()
 
 
 def load_triplet_or_default(model_dir: str | None, model_name: str,
-                            device):
+                            device, precision: str = "float32"):
     """Load a saved triplet from ``model_dir`` (npz preferred, torch .pt
     accepted), or the bundled prod classifier when no dir is given."""
     if not model_dir:
-        return load_default_net(device)
+        return load_default_net(device, precision)
 
     def pick(suffix: str, alt: str) -> str:
         path = os.path.join(model_dir, f"{model_name}{suffix}")
@@ -137,14 +156,14 @@ def load_triplet_or_default(model_dir: str | None, model_name: str,
         os.path.join(model_dir, f"{model_name}_model_params.json"),
         pick("_classifier_conv.npz", "_classifier_conv.pt"),
         pick("_classifier_linear.npz", "_classifier_linear.pt"),
-        device)
+        device, precision)
 
 
-def load_default_net(device):
+def load_default_net(device, precision: str = "float32"):
     """The bundled prod classifier (``prod_net/init_model.npz``) on
-    ``device``; returns ``(net, model_params_dict)``."""
+    ``device`` at ``precision``; returns ``(net, model_params_dict)``."""
     model_params = ModelParams.from_json(
         os.path.join(_PROD_NET_DIR, "init_model_model_params.json"))
     sd = params_from_jax(load_bundle(
         os.path.join(_PROD_NET_DIR, "init_model.npz")))
-    return _glue(model_params, sd, device), model_params.to_dict()
+    return _glue(model_params, sd, device, precision), model_params.to_dict()

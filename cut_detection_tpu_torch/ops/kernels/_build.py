@@ -43,9 +43,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, scale, offset, out, B, H, W, Cout, stream
     "cutdet_conv1_block": [_P] * 6 + [_I] * 4 + [_P],
+    "cutdet_conv1_block_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, bias, scale, offset, out, B, H, W, Cin, Cout, stream
     "cutdet_conv_block_f32": [_P] * 6 + [_I] * 5 + [_P],
-    "cutdet_conv_block_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_bf16_out": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_bf16_operands": [_P] * 6 + [_I] * 5 + [_P],
     # x, row_idx, row_w, col_idx, col_w, out, B, H, W, out_h, out_w, stream
     "cutdet_resize_normalize": [_P] * 6 + [_I] * 5 + [_P],
 }

@@ -1,48 +1,73 @@
 """Layer-1 CNN block from raw uint8 BGR: ``csrc/conv1_block.cu``.
 
-Replaces the Pallas kernel ``conv1_pool_fused``
-(``cut_detection_tpu/ops/pallas/conv1_kernel.py:97``), float32 instance:
 conv3x3 (zero pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor) -> eval BN,
-with f32 pixels, weights, accumulation and output.  Pass the
-preprocess-folded kernel (``models.assembly.fold_preprocess``) so raw BGR
-pixels are the input.
+from raw pixels: pass the preprocess-folded kernel
+(``models.assembly.fold_preprocess``).  Two instances, chosen by
+``compute_dtype``:
+
+- ``f32`` (``None``) replaces the Pallas kernel ``conv1_pool_fused``
+  (``cut_detection_tpu/ops/pallas/conv1_kernel.py:97``): f32 pixels,
+  weights, accumulation and output.  The ``bfloat16`` rung runs it too,
+  on weights rounded to bf16: uint8 pixels are exact in bf16, so that is
+  the rung's own numerics.
+- ``bf16`` (``"bfloat16_full"``) replaces K1, ``fused_conv1_pool``
+  (``cut_detection_tpu/ops/pallas/fused_conv1.py:174``): bf16 weights,
+  f32 accumulation, ``relu(acc + bias)`` rounded to bf16 before the
+  pool, the BN affine in f32 and a bf16 NHWC output (K1's
+  ``out_dtype=bfloat16, nhwc_out=True``).  Unlike K1, any H >= 3.
 
 What bounds it on an H100: a 144x256 frame is ~110 KB of uint8 in and
-~0.78 MB of pooled f32 out, but 27*48 MACs per conv pixel — about 100
-FLOP per byte, so the f32 CUDA cores bound it, not memory.  The fused
-kernel keeps the [144,256,48] f32 conv output (7 MB per frame) out of
-device memory; the simple design stages a pooled row's five input rows
-in shared memory, holds each channel's 27 weights in registers and
+~0.78 MB of pooled f32 out (half in bf16), but 27*48 MACs per conv pixel —
+about 100 FLOP per byte, so the f32 CUDA cores bound it, not memory.  The
+fused kernel keeps the [144,256,48] conv output (7 MB per frame in f32)
+out of device memory; the simple design stages a pooled row's five input
+rows in shared memory, holds each channel's 27 weights in registers and
 feeds nine FMAs from five staged pixels (see the .cu header).
 
-The BN affine is ``s = gamma * rsqrt(var + eps)``, ``t = beta - mean*s``
-(``ops.nn.bn_scale_offset``), as in the Pallas kernel and
-``batch_norm_infer``.
+The BN affine is computed by the caller: ``s = gamma * rsqrt(var +
+eps)`` (``ops.nn.bn_scale_offset``) for ``conv1_pool_fused``, ``gamma /
+sqrt(var + eps)`` (``rsqrt=False``) for K1.  ``launches`` counts every
+launch; ``instance_launches`` counts them by instance name.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cut_detection_tpu_torch.ops import nn
 from cut_detection_tpu_torch.ops.kernels import _build
+from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block_plain
+
+# compute_dtype -> (instance name, kernel dtype, output dtype).
+INSTANCES = {
+    None: ("f32", torch.float32, torch.float32),
+    "bfloat16_full": ("bf16", torch.bfloat16, torch.bfloat16),
+}
 
 
-def conv1_block_plain(x_u8, kernel, bias, scale, offset):
-    """Plain PyTorch version: uint8 NHWC [B,H,W,Cin] -> f32
-    [B, H//3, (W-3)//3+1, Cout]."""
-    z = torch.relu(nn.conv2d_same(x_u8.float(), kernel, bias))
-    return nn.max_pool(z, 3) * scale + offset
+def conv1_block_plain(x_u8, kernel, bias, scale, offset, *,
+                      compute_dtype=None):
+    """Plain PyTorch version: uint8 NHWC [B,H,W,Cin] -> [B, H//3,
+    (W-3)//3+1, Cout], f32, or bf16 at ``"bfloat16_full"``: the mid-stack
+    block's plain version on the pixels as floats."""
+    return conv_block_plain(x_u8, kernel, bias, scale, offset,
+                            compute_dtype=compute_dtype,
+                            out_dtype=INSTANCES[compute_dtype][2])
 
 
-def conv1_block(x_u8, kernel, bias, scale, offset):
+def conv1_block(x_u8, kernel, bias, scale, offset, *, compute_dtype=None):
     """The fused layer-1 block: plain version on the CPU, kernel on CUDA.
 
-    ``x_u8``: uint8 [B, H, W, 3] NHWC (H, W >= 3); ``kernel``: f32 HWIO
-    [3, 3, 3, Cout]; ``bias``, ``scale``, ``offset``: f32 [Cout].
+    ``x_u8``: uint8 [B, H, W, 3] NHWC (H, W >= 3); ``kernel``: HWIO
+    [3, 3, 3, Cout], f32, or bf16 at ``"bfloat16_full"``; ``bias``,
+    ``scale``, ``offset``: f32 [Cout].
     """
+    if compute_dtype not in INSTANCES:
+        raise ValueError(f"conv1_block has no instance for compute_dtype="
+                         f"{compute_dtype!r}")
+    name, kdtype, out_dtype = INSTANCES[compute_dtype]
     if x_u8.device.type == "cpu":
-        return conv1_block_plain(x_u8, kernel, bias, scale, offset)
+        return conv1_block_plain(x_u8, kernel, bias, scale, offset,
+                                 compute_dtype=compute_dtype)
     if x_u8.device.type != "cuda":
         raise ValueError(f"conv1_block: unsupported device {x_u8.device}")
     if x_u8.dim() != 4 or x_u8.shape[3] != 3:
@@ -54,21 +79,24 @@ def conv1_block(x_u8, kernel, bias, scale, offset):
     cout = kernel.shape[-1]
     dev = x_u8.device
     _build.expect(x_u8, "x", torch.uint8, (b, h, w, cin), dev)
-    _build.expect(kernel, "kernel", torch.float32, (3, 3, cin, cout), dev)
-    for name, t in (("bias", bias), ("scale", scale), ("offset", offset)):
-        _build.expect(t, name, torch.float32, (cout,), dev)
-    out = torch.empty((b, h // 3, (w - 3) // 3 + 1, cout),
-                      dtype=torch.float32, device=dev)
+    _build.expect(kernel, "kernel", kdtype, (3, 3, cin, cout), dev)
+    for pname, t in (("bias", bias), ("scale", scale), ("offset", offset)):
+        _build.expect(t, pname, torch.float32, (cout,), dev)
+    out = torch.empty((b, h // 3, (w - 3) // 3 + 1, cout), dtype=out_dtype,
+                      device=dev)
     if b == 0:
         return out
     lib = _build.library()
-    rc = lib.cutdet_conv1_block(
-        x_u8.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-        scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w, cout,
-        torch.cuda.current_stream(dev).cuda_stream)
+    fn = lib.cutdet_conv1_block_bf16 if name == "bf16" \
+        else lib.cutdet_conv1_block
+    rc = fn(x_u8.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w,
+            cout, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "conv1_block launch")
     conv1_block.launches += 1
+    conv1_block.instance_launches[name] += 1
     return out
 
 
 conv1_block.launches = 0
+conv1_block.instance_launches = {name: 0 for name, _, _ in INSTANCES.values()}

@@ -3,13 +3,22 @@
 Replaces the Pallas kernel ``fused_conv_block_pm``
 (``cut_detection_tpu/ops/pallas/fused_block_pm.py:112``): conv3x3 (zero
 pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor, any H) -> eval-BN affine.
-One CUDA source, two instances:
+One CUDA source, three instances, chosen by ``compute_dtype`` (the JAX
+package's precision names) and ``out_dtype``:
 
-- ``bf16=False``: true f32 operands and accumulation — the float32 path
-  (layers 2 and 3 of the prod net, and layer 1 of an unfolded net);
-- ``bf16=True``: the Pallas kernel's numerics — operands rounded to
-  bf16, f32 accumulation, ``relu(acc + bias)`` rounded to bf16 before
-  the pool, f32 output (its ``out_dtype=float32``).
+- ``f32`` (``None``): true f32 operands and accumulation — the float32
+  path (layers 2 and 3 of the prod net, and layer 1 of an unfolded net);
+- ``bf16_operands`` (``"bfloat16"``): the ``bfloat16`` rung's block
+  (``layers.py:109-123``) — f32 input and weights rounded to bf16 as the
+  kernel reads them, f32 accumulation, f32 activations never rounded;
+- ``bf16_out`` (``"bfloat16_full"``, bf16 out): the Pallas kernel's
+  numerics — bf16 operands, f32 accumulation, ``relu(acc + bias)``
+  rounded to bf16 before the pool, bf16 output (its default
+  ``out_dtype``) — the ``bfloat16_full`` rung's layers 2 and 3.
+
+The plain version also takes ``"bfloat16_full"`` with an f32 output (the
+Pallas kernel's ``out_dtype=float32``), which no path runs and no kernel
+instance has.
 
 What bounds it on an H100: the prod layer-2 shape (48x85x48 in) costs
 ~84 M MAC per frame against ~0.8 MB of f32 input — the f32 CUDA cores,
@@ -18,8 +27,12 @@ block in shared memory and keeps the nine conv outputs under each pool
 window in registers (see the .cu header); ``wgmma`` on bf16 is later work.
 
 ``scale`` and ``offset`` are the BN affine, computed by the caller: the
-float32 path uses ``ops.nn.bn_scale_offset`` (``gamma * rsqrt``, as
-``batch_norm_infer``); the Pallas kernel computes ``gamma / sqrt``.
+float32 and ``bfloat16`` paths use ``ops.nn.bn_scale_offset``
+(``gamma * rsqrt``, as ``batch_norm_infer``); the Pallas kernel computes
+``gamma / sqrt`` (``rsqrt=False``).
+
+``launches`` counts every launch; ``instance_launches`` counts them by
+instance name.
 """
 
 from __future__ import annotations
@@ -29,35 +42,52 @@ import torch
 from cut_detection_tpu_torch.ops import nn
 from cut_detection_tpu_torch.ops.kernels import _build
 
-
-def _bf16_round(t):
-    return t.to(torch.bfloat16).float()
-
-
-def conv_block_plain(x, kernel, bias, scale, offset, *, bf16: bool = False):
-    """Plain PyTorch version: NHWC [B,H,W,Cin] -> f32
-    [B, H//3, (W-3)//3+1, Cout].  With ``bf16`` the operands and the
-    post-ReLU activation are rounded to bf16; a product of two bf16
-    values is exact in f32, so the f32 convolution then accumulates
-    exactly what the kernel accumulates."""
-    x = x.float()
-    if bf16:
-        x, kernel = _bf16_round(x), _bf16_round(kernel)
-    z = torch.relu(nn.conv2d_same(x, kernel, bias))
-    if bf16:
-        z = _bf16_round(z)
-    return nn.max_pool(z, 3) * scale + offset
+# (compute_dtype, out_dtype) -> (instance name, dtype of x and kernel).
+INSTANCES = {
+    (None, torch.float32): ("f32", torch.float32),
+    ("bfloat16", torch.float32): ("bf16_operands", torch.float32),
+    ("bfloat16_full", torch.bfloat16): ("bf16_out", torch.bfloat16),
+}
 
 
-def conv_block(x, kernel, bias, scale, offset, *, bf16: bool = False):
+def instance(compute_dtype, out_dtype=torch.float32):
+    """(instance name, dtype of x and kernel) of a combination; raise for
+    one that has no kernel."""
+    try:
+        return INSTANCES[(compute_dtype, out_dtype)]
+    except KeyError:
+        raise ValueError(f"conv_block has no instance for compute_dtype="
+                         f"{compute_dtype!r}, out_dtype={out_dtype}") from None
+
+
+def conv_block_plain(x, kernel, bias, scale, offset, *, compute_dtype=None,
+                     out_dtype=torch.float32):
+    """Plain PyTorch version: NHWC [B,H,W,Cin] -> [B, H//3, (W-3)//3+1,
+    Cout] in ``out_dtype``.  With a ``compute_dtype`` the operands are
+    rounded to bf16, and a product of two bf16 values is exact in f32, so
+    the f32 convolution accumulates exactly what the kernel accumulates;
+    ``"bfloat16_full"`` also rounds the post-ReLU activation to bf16."""
+    conv_dtype = None if compute_dtype is None else "bfloat16"
+    z = torch.relu(nn.conv2d_same(x.float(), kernel.float(), bias,
+                                  compute_dtype=conv_dtype))
+    if compute_dtype == "bfloat16_full":
+        z = nn.bf16_round(z)
+    return (nn.max_pool(z, 3) * scale + offset).to(out_dtype)
+
+
+def conv_block(x, kernel, bias, scale, offset, *, compute_dtype=None,
+               out_dtype=torch.float32):
     """The fused mid-stack block: plain version on the CPU, kernel on CUDA.
 
-    ``x``: f32 [B, H, W, Cin] NHWC (H, W >= 3), or bf16 with ``bf16``;
-    ``kernel``: HWIO [3, 3, Cin, Cout] in the same dtype as ``x``;
-    ``bias``, ``scale``, ``offset``: f32 [Cout].
+    ``x``: NHWC [B, H, W, Cin] (H, W >= 3) and ``kernel``: HWIO [3, 3,
+    Cin, Cout], both f32, or both bf16 at ``"bfloat16_full"``; ``bias``,
+    ``scale``, ``offset``: f32 [Cout].
     """
+    name, dtype = instance(compute_dtype, out_dtype)
     if x.device.type == "cpu":
-        return conv_block_plain(x, kernel, bias, scale, offset, bf16=bf16)
+        return conv_block_plain(x, kernel, bias, scale, offset,
+                                compute_dtype=compute_dtype,
+                                out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block: unsupported device {x.device}")
     if x.dim() != 4:
@@ -71,23 +101,23 @@ def conv_block(x, kernel, bias, scale, offset, *, bf16: bool = False):
         raise ValueError(f"conv_block supports up to 128 output channels, "
                          f"got {cout}")
     dev = x.device
-    dtype = torch.bfloat16 if bf16 else torch.float32
     _build.expect(x, "x", dtype, (b, h, w, cin), dev)
     _build.expect(kernel, "kernel", dtype, (3, 3, cin, cout), dev)
-    for name, t in (("bias", bias), ("scale", scale), ("offset", offset)):
-        _build.expect(t, name, torch.float32, (cout,), dev)
-    out = torch.empty((b, h // 3, (w - 3) // 3 + 1, cout),
-                      dtype=torch.float32, device=dev)
+    for pname, t in (("bias", bias), ("scale", scale), ("offset", offset)):
+        _build.expect(t, pname, torch.float32, (cout,), dev)
+    out = torch.empty((b, h // 3, (w - 3) // 3 + 1, cout), dtype=out_dtype,
+                      device=dev)
     if b == 0:
         return out
-    lib = _build.library()
-    fn = lib.cutdet_conv_block_bf16 if bf16 else lib.cutdet_conv_block_f32
+    fn = getattr(_build.library(), f"cutdet_conv_block_{name}")
     rc = fn(x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
             scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w,
             cin, cout, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "conv_block launch")
     conv_block.launches += 1
+    conv_block.instance_launches[name] += 1
     return out
 
 
 conv_block.launches = 0
+conv_block.instance_launches = {name: 0 for name, _ in INSTANCES.values()}

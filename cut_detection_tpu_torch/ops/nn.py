@@ -1,4 +1,4 @@
-"""NHWC neural-net ops with the JAX package's numerics (float32 only).
+"""NHWC neural-net ops with the JAX package's numerics.
 
 Counterpart of ``cut_detection_tpu/ops/nn.py``.  Layouts match it at every
 public function so the tests compare like with like:
@@ -11,6 +11,12 @@ Internally the convolution and pooling run on NCHW views through
 ``torch.nn.functional``.  Float32 on CUDA needs TF32 off
 (``utils.device.strict_fp32``): the JAX package forces
 ``Precision.HIGHEST`` for the same reason (its ``ops/nn.py:42-58``).
+
+``compute_dtype`` follows the JAX package's precision contract
+(``ops/nn.py:34-70, 248-265``): ``"bfloat16"`` and ``"bfloat16_full"``
+round the operands to bf16 and accumulate in f32.  A product of two bf16
+values is exact in f32, so rounding, then multiplying in f32, is what a
+bf16 matrix unit with f32 accumulation computes.
 """
 
 from __future__ import annotations
@@ -33,10 +39,30 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def conv2d_same(x, kernel, bias=None):
-    """3x3 'same' convolution, NHWC x HWIO -> NHWC (zero padding 1)."""
-    out = F.conv2d(_nchw(x), kernel.permute(3, 2, 0, 1), bias, padding=1)
-    return _nhwc(out)
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def conv2d_same(x, kernel, bias=None, *, compute_dtype=None):
+    """3x3 'same' convolution, NHWC x HWIO -> NHWC (zero padding 1).
+
+    ``compute_dtype=None``: float32 throughout.  ``"bfloat16"``: bf16
+    operands, f32 accumulation and an f32 result.  ``"bfloat16_full"``:
+    the same, with the accumulator rounded to bf16 and the bias added in
+    bf16, as the JAX op does (a bf16 result).
+    """
+    if compute_dtype is not None:
+        x, kernel = bf16_round(x.float()), bf16_round(kernel.float())
+    full = compute_dtype == "bfloat16_full"
+    out = F.conv2d(_nchw(x), kernel.permute(3, 2, 0, 1),
+                   None if full else bias, padding=1)
+    out = _nhwc(out)
+    if full:
+        out = out.to(torch.bfloat16)
+        if bias is not None:
+            out = out + bias.to(torch.bfloat16)
+    return out
 
 
 def max_pool(x, window: int = 3, stride: int | None = None):
@@ -86,10 +112,14 @@ def flatten_nchw_order(x):
     return _nchw(x).reshape(x.shape[0], -1)
 
 
-def bn_scale_offset(mean, var, gamma, beta, eps: float = BN_EPS):
+def bn_scale_offset(mean, var, gamma, beta, eps: float = BN_EPS, *,
+                    rsqrt: bool = True):
     """Eval-mode BN as an affine: ``s = gamma * rsqrt(var + eps)``,
-    ``t = beta - mean * s``."""
-    s = gamma * torch.rsqrt(var + eps)
+    ``t = beta - mean * s``.  ``rsqrt=False`` gives the Pallas kernels'
+    ``s = gamma / sqrt(var + eps)`` (``fused_conv1.py:207``,
+    ``fused_block_pm.py:136``)."""
+    s = gamma * torch.rsqrt(var + eps) if rsqrt else gamma / torch.sqrt(
+        var + eps)
     return s, beta - mean * s
 
 
@@ -100,8 +130,11 @@ def batch_norm_infer(x, mean, var, gamma, beta, eps: float = BN_EPS):
     return x * s + t
 
 
-def linear(x, weight, bias=None):
-    """``nn.Linear`` with weights stored ``[in, out]``."""
+def linear(x, weight, bias=None, *, compute_dtype=None):
+    """``nn.Linear`` with weights stored ``[in, out]``; an f32 result.
+    With a ``compute_dtype`` the operands are rounded to bf16 first."""
+    if compute_dtype is not None:
+        x, weight = bf16_round(x), bf16_round(weight)
     out = x @ weight
     if bias is not None:
         out = out + bias

@@ -1,8 +1,9 @@
 """End-to-end inference pipeline of the port: decode -> classify -> segment
 -> CSV.
 
-Counterpart of ``cut_detection_tpu/pipeline.py`` (the float32 / bgr
-path), mirroring the reference's segment_video.py:20-77:
+Counterpart of ``cut_detection_tpu/pipeline.py`` (the bgr path at the
+``float32``, ``bfloat16`` and ``bfloat16_full`` rungs), mirroring the
+reference's segment_video.py:20-77:
 
     decode (host thread or subprocess) -> uint8 NHWC BGR batches ->
     [device] layer-1 kernel on raw pixels (preprocess folded into its
@@ -93,9 +94,10 @@ def make_classify_step(net: GluedNet, *,
     and feeds its f32 RGB to an unfolded net.  argmax ties go to the
     first index, like ``torch.max`` in the reference.
 
-    Memoized per (net, options), as the JAX step is: the folded and the
-    unfolded copies are distinct nets.  Each copy's kernel arguments are
-    computed once, here, not in every step.
+    The step runs at the net's precision.  Memoized per (net, options),
+    as the JAX step is: nets of different precision, and the folded and
+    the unfolded copies, are distinct nets.  Each copy's kernel arguments
+    are computed once, here, not in every step.
     """
     if device_resize is not None:
         device_resize = tuple(int(d) for d in device_resize)
@@ -105,7 +107,7 @@ def make_classify_step(net: GluedNet, *,
         return per_net[key]
     fold = not pallas_preprocess
     # The step must not hold a strong reference to its own weak key.
-    frozen = GluedNet(net.model_params)
+    frozen = GluedNet(net.model_params, net.precision)
     state = net.state_dict()
     frozen.load_state_dict(fold_preprocess(state) if fold else state)
     frozen.to(net.device)
@@ -225,11 +227,13 @@ def classify_video(
     transfer: str = "auto",
     device_resize: bool = False,
     pallas_preprocess: bool = False,
+    precision: str = "float32",
 ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """Decode + classify; return per-frame ``(conf, pred, stats)``.
 
-    The model runs on ``net.device``, or on ``device`` when the default
-    net is loaded here; one of the two is required.  Defaults mirror
+    The model runs on ``net.device`` at ``net.precision``, or on
+    ``device`` at ``precision`` when the default net is loaded here; one
+    of ``net`` and ``device`` is required.  Defaults mirror
     segment_video.py: width 256, batch 128, a log line every 50 batches,
     and the ``frame_limit`` break *after* the batch that crosses the
     limit (:53-58).
@@ -247,8 +251,8 @@ def classify_video(
     if net is None:
         if device is None:
             raise ValueError("classify_video needs a net or a device")
-        net, _ = load_default_net(device)
-        logger.info("Loaded default classifier.")
+        net, _ = load_default_net(device, precision)
+        logger.info("Loaded default classifier (%s).", precision)
     device = net.device
 
     on_device_preprocess = device_resize or pallas_preprocess
@@ -319,8 +323,9 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     ``cut_detection_tpu.data.video.batch_frames`` does; ``length`` (the
     expected frame count) sizes the device score buffer.  The batches'
     ``close()``, when they have one, runs on exit.  ``device_resize`` and
-    ``pallas_preprocess`` choose the step (:func:`make_classify_step`).
-    Returns the valid frames' ``(conf, pred, stats)``.
+    ``pallas_preprocess`` choose the step (:func:`make_classify_step`),
+    which runs at ``net.precision``.  Returns the valid frames' ``(conf,
+    pred, stats)``.
     """
     device = net.device
     meter = ThroughputMeter(warmup_items=batch_size)
@@ -408,11 +413,14 @@ def segment_video_file(
     transfer: str = "auto",
     device_resize: bool = False,
     pallas_preprocess: bool = False,
+    precision: str = "float32",
 ) -> tuple[str, Segmentation, PipelineStats]:
     """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
 
     Default output naming (input stem + ``_segments.csv``) and glue
-    thresholds follow segment_video.py:71-74, 91-102.
+    thresholds follow segment_video.py:71-74, 91-102.  ``precision``
+    applies when the default net is loaded here (see
+    :func:`classify_video`).
     """
     if not os.path.isfile(input_path):
         raise ValueError(f"{input_path} does not exist.")
@@ -421,7 +429,8 @@ def segment_video_file(
         frame_limit=frame_limit, print_every=print_every,
         decode_workers=decode_workers, cache_path=cache_path,
         decoder=decoder, decode_process=decode_process, transfer=transfer,
-        device_resize=device_resize, pallas_preprocess=pallas_preprocess)
+        device_resize=device_resize, pallas_preprocess=pallas_preprocess,
+        precision=precision)
     seg = _smooth(conf, pred, base_threshold, blank_threshold)
     if output_path is None:
         output_path = os.path.splitext(input_path)[0] + "_segments.csv"

@@ -119,7 +119,8 @@ def _k3(x, p, s):
 
 def _port_bf16(x, p, s):
     return conv_block_plain(T(np.asarray(x)), T(p["kernel"]), T(p["bias"]),
-                            *_pm_scale_offset(p, s), bf16=True)
+                            *_pm_scale_offset(p, s),
+                            compute_dtype="bfloat16_full")
 
 
 def _bf16_input(rng, shape):

@@ -116,6 +116,24 @@ def test_step_memo_is_per_option(net):
     assert make_classify_step(other) is not steps[0]
 
 
+def test_step_memo_is_per_precision(net):
+    """A float32 net and a bf16 net of the same weights never share a
+    memoized step: precision is the net's, and the memo is per net."""
+    nets = [net] + [load_default_net(CPU, p)[0]
+                    for p in ("bfloat16", "bfloat16_full")]
+    for opts in ({}, {"device_resize": (144, 256),
+                      "pallas_preprocess": True}):
+        steps = [make_classify_step(n, **opts) for n in nets]
+        assert len({id(s) for s in steps}) == len(nets)
+        for n, s in zip(nets, steps):
+            assert make_classify_step(n, **opts) is s
+    frames = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (2, 36, 64, 3), dtype=np.uint8))
+    confs = [make_classify_step(n)(frames)[0] for n in nets]
+    assert not torch.equal(confs[0], confs[1])
+    assert not torch.equal(confs[0], confs[2])
+
+
 def test_device_resize_with_decode_subprocess_matches_jax(synthetic_video,
                                                           tmp_path, net):
     """The shared-memory ring carries source-resolution batches."""
@@ -272,8 +290,9 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--precision", "bfloat16"], ["--precision", "int8_mxu"],
-    ["--transfer", "yuv420"], ["--device-glue"], ["--profile", "trace_dir"],
+    ["--precision", "uint8_pool"], ["--precision", "uint8_chain"],
+    ["--precision", "int8_mxu"], ["--transfer", "yuv420"], ["--device-glue"],
+    ["--profile", "trace_dir"],
 ])
 def test_cli_refuses_unported_flags(capsys, flags):
     with pytest.raises(SystemExit) as exc:
