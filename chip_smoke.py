@@ -13,10 +13,15 @@ Phases, each of which raises on failure:
              inputs), with the max error, the tolerance (for the
              instances that round activations to bf16, the worst error
              over its one-ulp bound and the count of one-ulp crossings,
-             at most 0.1% of the elements) and the median times: layer 1
-             (f32, and K1's bf16 instance) at 144x256 and 143x256, the
-             mid-stack block's three instances at 48x85 and 16x28, the
-             resize + normalize kernel at 1280x720 -> 256x144;
+             at most 0.1% of the elements), the median times of the
+             kernel, its plain version and the library's convolution
+             (cuDNN, the block's conv alone at the instance's operand
+             type), and the least time the card could take (bytes or
+             operations, from this run's shapes): layer 1 (f32, and K1's
+             bf16 instance) at 144x256 and 143x256, the mid-stack
+             block's three NHWC instances and K4's two channel-major
+             ones at 48x85 and 16x28, the resize + normalize kernel at
+             1280x720 -> 256x144;
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -33,22 +38,34 @@ Phases, each of which raises on failure:
              loop's frames/s, the stack, the pageable and pinned uploads,
              the resizes and the steps, and each loop's busy share from
              a trace;
-7. precision — the slice stream at ``--precision bfloat16`` and
-             ``bfloat16_full``: card against CPU (identical classes,
-             confidences within 2e-2), launches by instance (K1 and the
-             bf16-output mid-stack instance at ``bfloat16_full``), each
-             rung's step on a resident batch beside float32's, and each
-             rung's loop frames/s;
-8. golden  — when a decoder exists (cv2 or the native decoder), the
+7. precision — the slice stream at ``--precision bfloat16``,
+             ``bfloat16_full``, ``uint8_pool`` and ``uint8_chain``: card
+             against CPU (identical classes, confidences within 2e-2 at
+             the bf16 rungs and ``QUANT_CONF_TOL`` at the quantized
+             ones), launches by instance (K1 and the bf16-output
+             mid-stack instance at ``bfloat16_full``; none at the
+             quantized rungs, which are plain PyTorch), each rung's step
+             on a resident batch beside float32's, and each rung's loop
+             frames/s;
+8. bench_fused — the port's ``bench_fused_conv1`` entry point at batch
+             128: stage ``block`` with the launch counts read around it
+             (K1 -> K4 -> K4 -> head against the shipped net: no class
+             flips, logits within ``BF16_CONF_TOL``, K4 launched twice
+             per call of that graph), then stages ``all`` and ``mid``;
+             each stage's JSON line is printed;
+9. golden  — when a decoder exists (cv2 or the native decoder), the
              ``segment_video`` CLI's ``main`` on the committed golden
              clips at float32 with no preprocess flag, ``--device-resize``
              and ``--device-resize --pallas-preprocess``, compared byte
-             for byte with the reference CSVs, and the same three at each
-             bf16 rung (byte for byte without ``--pallas-preprocess``,
-             frame accuracy >= 0.99 against the reference with it); then
-             the labelled eval-corpus clips at both bf16 rungs, held to
-             the JAX package's gates.  Kernel launches are counted by
-             instance in every run.
+             for byte with the reference CSVs; at each bf16 rung the same
+             three on ``clip.mp4`` and the default on ``clip_odd.mp4``
+             (byte for byte without ``--pallas-preprocess``, frame
+             accuracy >= 0.99 against the reference with it); at each
+             quantized rung the default on both clips, byte for byte;
+             then the labelled eval-corpus clips at both bf16 rungs and
+             ``corpus_a`` and ``corpus_nat`` at both quantized rungs,
+             held to the JAX package's gates.  Kernel launches are
+             counted by instance in every run.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -79,6 +96,16 @@ BF16_CONF_TOL = 2e-2    # the same at the bf16 rungs: one-ulp crossings of
                         # 1e-3 (6.3e-3 at most measured on this stream)
 K5_TOL = 1e-5           # resize + normalize on [0, 1]: two-tap sums
                         # against the plain version's dense matmuls
+QUANT_CONF_TOL = 2e-2   # the slice at the quantized rungs, card vs CPU: a
+                        # conv output a bf16 ulp apart (cuDNN's summation
+                        # order against the CPU's) moves a uint8 code by 1
+                        # (7.9e-3 at most measured on this stream)
+BENCH_STEPS = 3         # calls per timed loop of the bench_fused phase
+# H100 SXM peaks (NVIDIA's data sheet, dense): the least time of a kernel
+# is the larger of its bytes over the memory rate and its operations over
+# the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 SRC_HW = (720, 1280)    # source frames of the preprocess paths
 MODEL_HW = (144, 256)   # their size at the model (reference size rule)
 
@@ -143,23 +170,23 @@ def _bn(rng, cout):
 
 
 def phase_kernels(dev):
-    """Every kernel instance against its plain version; returns
-    ``{row name: (max abs error, kernel ms, plain ms)}`` at the main
-    path's shapes (layer 1 at 144x256, the mid-stack block at 48x85)."""
+    """Every kernel instance against its plain version; returns ``{row
+    name: {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+    "bound_by"}}`` at the main path's shapes (layer 1 at 144x256, the
+    mid-stack block at 48x85)."""
+    import torch.nn.functional as F
+
     from cut_detection_tpu_torch.models.assembly import (
         fold_preprocess,
         load_default_net,
     )
+    from cut_detection_tpu_torch.ops.kernels import conv_block as cb
     from cut_detection_tpu_torch.ops.kernels.conv1_block import (
         conv1_block,
         conv1_block_plain,
     )
-    from cut_detection_tpu_torch.ops.kernels.conv_block import (
-        INSTANCES,
-        conv_block,
-        conv_block_plain,
-    )
     from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+        _resize_matrices,
         resize_normalize,
         resize_normalize_plain,
     )
@@ -171,36 +198,70 @@ def phase_kernels(dev):
     rng = np.random.default_rng(0)
     results = {}
 
-    def record(name, shape, err, tol, ok, ms, plain_ms):
+    def library_conv(x_nhwc, kernel, bias, op_dtype):
+        """One cuDNN convolution of the block's input and weights at the
+        instance's operand type, channels-last: the library's route to
+        the block's dominant work (the epilogue is not in it)."""
+        x = x_nhwc.permute(0, 3, 1, 2).to(op_dtype).contiguous(
+            memory_format=torch.channels_last)
+        w = kernel.permute(3, 2, 0, 1).to(op_dtype).contiguous(
+            memory_format=torch.channels_last)
+        b = bias.to(op_dtype)
+        return lambda: F.conv2d(x, w, b, padding=1)
+
+    def bound(inputs, out, h, w, cin, cout, op):
+        """Least milliseconds: each input read once and the output written
+        once over the HBM rate, against the conv's operations (the conv
+        outputs the pool reads, 3*Hp x 3*Wp per frame) over the peak of
+        the operand type ``op``."""
+        nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
+        b = out.shape[0]
+        flops = 2 * b * (3 * (h // 3)) * (3 * ((w - 3) // 3 + 1)) \
+            * 9 * cin * cout
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * flops / PEAK_FLOPS[op]
+        return (by_ops, "operations") if by_ops >= by_bytes \
+            else (by_bytes, "bytes")
+
+    def record(name, shape, err, tol, ok, ms, plain_ms, library_ms, bnd):
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name} {shape}: max_abs_err {err:.3e} ({tol}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'OK' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} at {shape} disagrees with its "
                                  f"plain version beyond {tol}")
-        return err, ms, plain_ms
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1]}
 
-    def compare(name, shape, fn, plain_fn, offset=None):
+    def compare(name, shape, fn, plain_fn, library_fn, bound_of,
+                offset=None, to_nhwc=None):
         """``fn`` against ``plain_fn``: within F32_TOL, or, with the BN
         ``offset`` of an instance that rounds its activation to bf16, by
         ``tolerance.bf16_check``: within one bf16 ulp of the pooled
         activation m (y = m*s + t), plus one ulp of y where the output is
         bf16, on every element, and apart by more than 1e-5 (a one-ulp
         crossing: summation order moved m across a bf16 rounding
-        boundary) on at most 0.1% of them."""
+        boundary) on at most 0.1% of them.  ``to_nhwc`` brings a
+        channel-major output to NHWC for that check."""
         got, ref = fn(), plain_fn()
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         if offset is None:
             tol, ok = f"tol {F32_TOL:.0e}", err <= F32_TOL
         else:
+            if to_nhwc is not None:
+                got, ref = to_nhwc(got), to_nhwc(ref)
             ok, worst, crossings = bf16_check(got, ref, offset)
             cap = MAX_CROSSING_SHARE * got.numel()
             tol = (f"worst err / (2^-7*ulp terms + 1e-5) = {worst:.4f} <= "
                    f"1.001, crossings {crossings} of {got.numel()} <= "
                    f"{cap:.0f}")
         return record(name, shape, err, tol, ok, cuda_ms(fn),
-                      cuda_ms(plain_fn))
+                      cuda_ms(plain_fn),
+                      None if library_fn is None else cuda_ms(library_fn),
+                      bound_of(got))
 
     for precision, inst in (("float32", "f32"), ("bfloat16_full", "bf16")):
         net, _ = load_default_net(dev, precision)
@@ -209,16 +270,21 @@ def phase_kernels(dev):
                    ["conv.conv_layers.0.conv.weight"].permute(2, 3, 1, 0)
                    .contiguous())
         cd = None if precision == "float32" else precision
+        op = "bf16" if cd else "f32"
         if cd:
             kernel1 = kernel1.to(torch.bfloat16)
         for h, w in ((144, 256), (143, 256)):
             x = torch.from_numpy(rng.integers(0, 256, (BATCH, h, w, 3),
                                               dtype=np.uint8)).to(dev)
             args = (x, kernel1, bias1, s1, t1)
-            out = compare(f"conv1_block[{inst}]", (BATCH, h, w, 3),
-                          lambda: conv1_block(*args, compute_dtype=cd),
-                          lambda: conv1_block_plain(*args, compute_dtype=cd),
-                          offset=t1 if cd else None)
+            out = compare(
+                f"conv1_block[{inst}]", (BATCH, h, w, 3),
+                lambda: conv1_block(*args, compute_dtype=cd),
+                lambda: conv1_block_plain(*args, compute_dtype=cd),
+                library_conv(x, kernel1, bias1, getattr(torch, {
+                    "f32": "float32", "bf16": "bfloat16"}[op])),
+                lambda o: bound((x, kernel1), o, h, w, 3, 48, op),
+                offset=t1 if cd else None)
             if h == 144:
                 results[f"conv1_block[{inst}]"] = out
 
@@ -231,13 +297,45 @@ def phase_kernels(dev):
         bias = torch.from_numpy(rng.normal(0, 0.1, cout)
                                 .astype(np.float32)).to(dev)
         s, t = (torch.from_numpy(a).to(dev) for a in _bn(rng, cout))
-        for (cd, out_dtype), (inst, dtype) in INSTANCES.items():
+        for (cd, out_dtype), (inst, dtype) in cb.INSTANCES.items():
             args = (x.to(dtype), k.to(dtype), bias, s, t)
             kw = {"compute_dtype": cd, "out_dtype": out_dtype}
-            out = compare(f"conv_block[{inst}]", (BATCH, h, w, cin),
-                          lambda: conv_block(*args, **kw),
-                          lambda: conv_block_plain(*args, **kw),
-                          offset=t if cd == "bfloat16_full" else None)
+            op = "f32" if cd is None else "bf16"
+            out = compare(
+                f"conv_block[{inst}]", (BATCH, h, w, cin),
+                lambda: cb.conv_block(*args, **kw),
+                lambda: cb.conv_block_plain(*args, **kw),
+                library_conv(args[0], args[1], bias, torch.float32
+                             if cd is None else torch.bfloat16),
+                lambda o: bound(args[:2], o, h, w, cin, cout, op),
+                offset=t if cd == "bfloat16_full" else None)
+            if h == 48:
+                results[f"conv_block[{inst}]"] = out
+
+        # K4 through its wrapper, channel-major in and out (no permute), at
+        # both out dtypes: bf16 input and kernel, as the kernel reads them.
+        gamma = torch.from_numpy(rng.normal(1, 0.1, cout)
+                                 .astype(np.float32)).to(dev)
+        beta = torch.from_numpy(rng.normal(0, 0.1, cout)
+                                .astype(np.float32)).to(dev)
+        mean = torch.from_numpy(rng.normal(0, 0.5, cout)
+                                .astype(np.float32)).to(dev)
+        var = torch.from_numpy(rng.uniform(0.5, 2, cout)
+                               .astype(np.float32)).to(dev)
+        xcm = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+        kbf = k.to(torch.bfloat16)
+        k4_args = (xcm, kbf, bias, gamma, beta, mean, var)
+        t4 = cb._k4_affine(gamma, beta, mean, var)[1]
+        for out_dtype, inst in cb.CM_INSTANCES.items():
+            k4_kw = {"out_dtype": out_dtype, "nhwc_out": False,
+                     "channel_major_in": True}
+            out = compare(
+                f"conv_block[{inst}]", (BATCH, cin, h, w),
+                lambda: cb.fused_conv_block(*k4_args, **k4_kw),
+                lambda: cb.fused_conv_block_plain(*k4_args, **k4_kw),
+                library_conv(x, k, bias, torch.bfloat16),
+                lambda o: bound((xcm, kbf), o, h, w, cin, cout, "bf16"),
+                offset=t4, to_nhwc=lambda a: a.permute(0, 2, 3, 1))
             if h == 48:
                 results[f"conv_block[{inst}]"] = out
 
@@ -248,10 +346,17 @@ def phase_kernels(dev):
     ref = resize_normalize_plain(raw, *MODEL_HW)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
+    # Bytes bound (2 taps per axis, ~8 FLOP per output value, is far
+    # below the memory line): the source rows the vertical taps read,
+    # whole (the horizontal taps touch every 32-byte sector of a row at
+    # this 5x downscale), and the output.
+    rows = int((_resize_matrices(*SRC_HW, *MODEL_HW)[0] != 0).any(0).sum())
+    nbytes = BATCH * rows * SRC_HW[1] * 3 + got.numel() * got.element_size()
     results["resize_normalize"] = record(
         "resize_normalize", (BATCH, *SRC_HW, 3), err, f"tol {K5_TOL:.0e}",
         err <= K5_TOL, cuda_ms(lambda: resize_normalize(raw, *MODEL_HW)),
-        cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)))
+        cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)), None,
+        (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"))
     log(f"kernels: launches so far {read_launches()} (comparisons and "
         "timing only)")
     return results
@@ -331,7 +436,14 @@ PATH_LAUNCHES = {
                                "conv_block[bf16_out]": 2},
     ("bfloat16_full", True): {"resize_normalize": 1,
                               "conv_block[bf16_out]": 3},
+    # The quantized rungs are plain PyTorch: no hand-written kernel on
+    # the default path, the resize kernel alone with the fused preprocess.
+    ("uint8_pool", False): {},
+    ("uint8_pool", True): {"resize_normalize": 1},
+    ("uint8_chain", False): {},
+    ("uint8_chain", True): {"resize_normalize": 1},
 }
+QUANTIZED = ("uint8_pool", "uint8_chain")
 
 
 def per_batch(n: int, precision: str = "float32",
@@ -361,7 +473,8 @@ def phase_slice(dev, frames, workdir, precision: str = "float32",
     )
 
     n = len(frames)
-    tol = CONF_TOL if precision == "float32" else BF16_CONF_TOL
+    tol = (CONF_TOL if precision == "float32" else QUANT_CONF_TOL
+           if precision in QUANTIZED else BF16_CONF_TOL)
     net_gpu, _ = load_default_net(dev, precision)
     net_cpu, _ = load_default_net("cpu", precision)
 
@@ -401,11 +514,13 @@ def phase_slice(dev, frames, workdir, precision: str = "float32",
 
 
 def phase_precision(dev, frames, workdir):
-    """The slice stream at the bf16 rungs: each checked as the float32
-    slice is (card against CPU, launches by instance), then each rung's
-    step on a resident batch beside float32's (CUDA events) and its loop
-    of 20 batches from host memory.  Returns the launches of each rung's
-    run."""
+    """The slice stream at the bf16 and quantized rungs: each checked as
+    the float32 slice is (card against CPU, launches by instance: none at
+    the quantized rungs), then each rung's step on a resident batch
+    beside float32's (CUDA events) and its loop of 20 batches from host
+    memory, and for the quantized rungs (plain PyTorch) the loop under a
+    trace, which names the library kernels their time goes to.  Returns
+    the launches of each rung's run."""
     from cut_detection_tpu_torch.models.assembly import load_default_net
     from cut_detection_tpu_torch.pipeline import (
         batch_frames,
@@ -413,11 +528,12 @@ def phase_precision(dev, frames, workdir):
         make_classify_step,
     )
 
+    rungs = ("bfloat16", "bfloat16_full", *QUANTIZED)
     launches = {p: phase_slice(dev, frames, workdir, p, tag="precision")
-                for p in ("bfloat16", "bfloat16_full")}
+                for p in rungs}
     resident = torch.from_numpy(np.stack(frames[:BATCH])).to(dev)
     n, reps = len(frames), 20
-    for precision in ("float32", "bfloat16", "bfloat16_full"):
+    for precision in ("float32", *rungs):
         net, _ = load_default_net(dev, precision)
         step = make_classify_step(net)
 
@@ -437,6 +553,8 @@ def phase_precision(dev, frames, workdir):
             f"of {reps} batches from host memory "
             f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s, "
             f"{wall_ms / reps:.4f} ms per batch")
+        if precision in QUANTIZED:
+            trace_loop(f"precision {precision}", loop, reps)
     return launches
 
 
@@ -714,10 +832,11 @@ def _cli_run(cli_main, video, out, precision, flags):
     wall = time.perf_counter() - t0
     launches = read_launches()
     per = PATH_LAUNCHES[(precision, "--pallas-preprocess" in flags)]
-    # Every path launches one mid-stack instance a fixed number of times
-    # a batch; the batches follow from its count.
-    mid = next(inst for inst in per if inst.startswith("conv_block"))
-    batches = max(launches[mid] // per[mid], 1)
+    # Every kernel path launches one mid-stack instance a fixed number of
+    # times a batch, and the batches follow from its count; a path with
+    # no kernel (the quantized rungs) must launch none.
+    mids = [inst for inst in per if inst.startswith("conv_block")]
+    batches = max(launches[mids[0]] // per[mids[0]], 1) if mids else 0
     check_launches(f"{os.path.basename(video)} {precision} {flags}",
                    launches, per_batch(batches, precision,
                                        "--pallas-preprocess" in flags))
@@ -737,14 +856,22 @@ def phase_golden(workdir):
     log(f"golden: decoder {decoder}")
     extra = [] if decoder == "cv2" else ["--decoder", "native",
                                          "--decode-process", "off"]
-    for precision in ("float32", "bfloat16", "bfloat16_full"):
+    for precision in ("float32", "bfloat16", "bfloat16_full", *QUANTIZED):
         for flags in PREPROCESS_FLAGS:
-            # The bf16 rungs promise accuracy, not bytes; the float
+            # float32 runs every flag set on both clips, the bf16 rungs
+            # every flag set on clip.mp4 and the default on clip_odd.mp4,
+            # the quantized rungs the default on both (their preprocess
+            # paths are the bf16 rungs' code, held by the CPU tests).
+            if flags and precision in QUANTIZED:
+                continue
+            # The fast rungs promise accuracy, not bytes; the float
             # bilinear resize of --pallas-preprocess is held by frame
             # accuracy there, the rest byte for byte.
             exact = precision == "float32" or \
                 "--pallas-preprocess" not in flags
             for clip, ref, n in GOLDEN_CLIPS:
+                if flags and precision != "float32" and clip != "clip.mp4":
+                    continue
                 out = os.path.join(workdir, clip + ".csv")
                 ref = os.path.join(GOLDEN, ref)
                 wall, launches = _cli_run(
@@ -762,27 +889,71 @@ def phase_golden(workdir):
                     raise AssertionError(
                         f"{clip} {precision} {flags}: CSV differs from "
                         f"{os.path.basename(ref)}")
-    for precision in ("bfloat16", "bfloat16_full"):
-        for name, n, frame_min in CORPUS_RUNS:
-            out = os.path.join(workdir, name + ".csv")
-            wall, launches = _cli_run(
-                cli_main, os.path.join(CORPUS, name + ".mp4"), out,
-                precision, extra)
-            res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
-                           n, tolerance=30)
-            if name == "corpus_nat" and precision == "bfloat16_full":
-                frame_min = 1.0
-            ok = (res["frame_accuracy"] >= frame_min
-                  and res["boundary_precision"] >= 0.90
-                  and res["boundary_recall"] >= 0.90)
-            log(f"corpus: {name} {precision} -> frame accuracy "
-                f"{res['frame_accuracy']} (gate {frame_min}), boundary P/R "
-                f"{res['boundary_precision']}/{res['boundary_recall']} "
-                f"(gate 0.9) {'OK' if ok else 'FAIL'} ({wall:.1f} s, "
-                f"launches {launches})")
-            if not ok:
-                raise AssertionError(f"{name} {precision} fails its gate: "
-                                     f"{res}")
+    corpus = [(p, run) for p in ("bfloat16", "bfloat16_full")
+              for run in CORPUS_RUNS]
+    corpus += [(p, run) for p in QUANTIZED for run in CORPUS_RUNS
+               if run[0] in ("corpus_a", "corpus_nat")]
+    for precision, (name, n, frame_min) in corpus:
+        out = os.path.join(workdir, name + ".csv")
+        wall, launches = _cli_run(
+            cli_main, os.path.join(CORPUS, name + ".mp4"), out,
+            precision, extra)
+        res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
+                       n, tolerance=30)
+        if name == "corpus_nat" and precision != "bfloat16":
+            frame_min = 1.0
+        ok = (res["frame_accuracy"] >= frame_min
+              and res["boundary_precision"] >= 0.90
+              and res["boundary_recall"] >= 0.90)
+        log(f"corpus: {name} {precision} -> frame accuracy "
+            f"{res['frame_accuracy']} (gate {frame_min}), boundary P/R "
+            f"{res['boundary_precision']}/{res['boundary_recall']} "
+            f"(gate 0.9) {'OK' if ok else 'FAIL'} ({wall:.1f} s, "
+            f"launches {launches})")
+        if not ok:
+            raise AssertionError(f"{name} {precision} fails its gate: "
+                                 f"{res}")
+
+
+def phase_bench(dev):
+    """The port's ``bench_fused_conv1`` entry point at batch 128.
+
+    Stage ``block`` is K4's main path: K1 -> K4 -> K4 -> head
+    (``e2e_allfused``) against the shipped ``bfloat16_full`` net
+    (``e2e_xla``, K1 -> K3 -> K3 -> head), each graph called once for the
+    comparison, once to warm up and ``3 * BENCH_STEPS`` times in its timed
+    loops, so K1, K3's ``bf16_out`` and K4's ``cm_bf16`` each launch twice
+    per call pair; the counts are read around that stage alone and must
+    be exactly those.  No class may flip and the logits must agree within
+    ``BF16_CONF_TOL``.  Then stages ``all`` and ``mid`` (the
+    ``uint8_pool`` layer 1 into K3 twice, against the ``uint8_chain``
+    net; reported).  Each stage's JSON line is printed.  Returns the
+    launches of the ``block`` stage.
+    """
+    from cut_detection_tpu_torch.scripts import bench_fused_conv1 as bench
+
+    zero_launches()
+    out = bench.run(BATCH, BENCH_STEPS, "block", dev)
+    launches = read_launches()
+    calls = 2 + 3 * BENCH_STEPS  # per graph: compare, warm up, 3 loops
+    want = dict.fromkeys(launches, 0)
+    for inst in ("conv1_block[bf16]", "conv_block[bf16_out]",
+                 "conv_block[cm_bf16]"):
+        want[inst] = 2 * calls
+    log(f"bench_fused: stage block, launches {launches}")
+    check_launches("bench_fused block", launches, want)
+    log(f"bench_fused: {json.dumps(out)}")
+    if out["full_argmax_flips"] != 0 or \
+            out["full_max_logit_diff"] > BF16_CONF_TOL:
+        raise AssertionError(f"K1 -> K4 -> K4 departs from the shipped net: "
+                             f"{out}")
+    for stage in ("all", "mid"):
+        res = bench.run(BATCH, BENCH_STEPS, stage, dev)
+        log(f"bench_fused: {json.dumps(res)}")
+        if stage == "all" and (res["argmax_flips"] != 0
+                               or res["full_argmax_flips"] != 0):
+            raise AssertionError(f"bench_fused all: class flips {res}")
+    return launches
 
 
 def _child_pids() -> list[int]:
@@ -860,6 +1031,9 @@ KERNEL_ROWS = (
     ("conv_block[bf16_out]", "bfloat16_full", "cut_detection_tpu_torch/"
      "csrc/conv_block.cu",
      "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
+    ("conv_block[cm_bf16]", "bench_fused", "cut_detection_tpu_torch/"
+     "csrc/conv_block.cu",
+     "cut_detection_tpu/ops/pallas/fused_conv_block.py:130"),
     ("resize_normalize", "preprocess", "cut_detection_tpu_torch/csrc/"
      "resize_normalize.cu",
      "cut_detection_tpu/ops/pallas/preprocess_kernel.py:74"),
@@ -887,13 +1061,13 @@ def run() -> tuple[str, list[dict]]:
         timed("host", phase_host, dev, frames)
         paths["preprocess"] = timed("preprocess", phase_preprocess, dev)
         paths.update(timed("precision", phase_precision, dev, frames, wd))
+        paths["bench_fused"] = timed("bench_fused", phase_bench, dev)
         timed("golden", phase_golden, wd)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
-        err, ms, plain_ms = kres[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": paths[path][name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     **kres[name]})
     return card, rows
 
 

@@ -10,9 +10,13 @@ names so each piece has an obvious counterpart:
 - ``segmentation``       host-side run-length table, orphan glue, CSV.
 - ``pipeline``           decode -> classify -> segment -> CSV.
 - ``cli.segment_video``  the ``segment_video`` command line.
+- ``scripts``            measurement entry points (``bench_fused_conv1``).
 
-Decode is shared with the JAX package (``cut_detection_tpu.data``, which
-imports no jax).
+The port imports nothing of ``cut_detection_tpu``: ``config``,
+``checkpoint.io``, ``geometry``, ``native``, ``data``, ``utils`` and
+``cli.evaluate`` are its own copies of the JAX package's jax-free modules,
+and the bundled classifier is read from ``cut_detection_tpu/prod_net/``
+by path.
 """
 
 # Lazy re-exports (PEP 562): submodule imports run this file first, so it

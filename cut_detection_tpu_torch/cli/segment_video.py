@@ -7,15 +7,15 @@ it stops with an error.  ``--device-resize`` decodes at source
 resolution and resizes on the device, bit-exact with cv2;
 ``--pallas-preprocess`` runs the fused resize + flip + /255 kernel there
 instead (float bilinear).  ``--precision`` takes ``float32`` (the
-reference-parity CSVs), ``bfloat16`` and ``bfloat16_full``.  Options of
-the JAX CLI that the port does not run yet are refused when the
-arguments are parsed, never ignored: the quantized precision rungs,
-``--transfer yuv420``, ``--device-glue`` and ``--profile``.
-``--transfer auto`` resolves to bgr.
+reference-parity CSVs), ``bfloat16``, ``bfloat16_full``, ``uint8_pool``
+and ``uint8_chain``.  Options of the JAX CLI that the port does not run
+yet are refused when the arguments are parsed, never ignored:
+``--precision int8_mxu``, ``--transfer yuv420``, ``--device-glue`` and
+``--profile``.  ``--transfer auto`` resolves to bgr.
 
     python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
         --transfer bgr [--device-resize [--pallas-preprocess]] \\
-        [--precision {float32,bfloat16,bfloat16_full}] \\
+        [--precision {float32,bfloat16,bfloat16_full,uint8_pool,uint8_chain}] \\
         [--output_path OUT.csv] [--cpu]
 """
 
@@ -24,8 +24,8 @@ from __future__ import annotations
 import argparse
 import logging
 
-from cut_detection_tpu.config import PRECISION_CHOICES
-from cut_detection_tpu.utils.logging import setup_logging
+from cut_detection_tpu_torch.config import PRECISION_CHOICES
+from cut_detection_tpu_torch.utils.logging import setup_logging
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,8 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="float32",
                    help="float32 guarantees reference-parity CSVs; "
                         "bfloat16 uses bf16 operands; bfloat16_full also "
-                        "keeps activations bf16.  The quantized rungs are "
-                        "not yet ported.")
+                        "keeps activations bf16; uint8_pool quantizes the "
+                        "conv activations to uint8 before the pool; "
+                        "uint8_chain also keeps them uint8 between layers.  "
+                        "int8_mxu is not yet ported.")
     return p
 
 

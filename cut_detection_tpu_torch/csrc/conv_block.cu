@@ -1,11 +1,14 @@
 // Mid-stack CNN block, fused: conv3x3 (zero pad 1) + bias -> ReLU ->
-// maxpool 3x3 stride 3 (floor) -> eval-BN affine, NHWC in and out.
+// maxpool 3x3 stride 3 (floor) -> eval-BN affine.
 //
-// Replaces the Pallas kernel fused_conv_block_pm
-// (cut_detection_tpu/ops/pallas/fused_block_pm.py).  One source,
-// templated on the types of the input, the weights, the operands (what
-// both are rounded to as they are read), the post-ReLU activation (what it
-// is rounded to before the pool) and the output.  Three instances:
+// Replaces two Pallas kernels: fused_conv_block_pm
+// (cut_detection_tpu/ops/pallas/fused_block_pm.py, NHWC) and
+// fused_conv_block (cut_detection_tpu/ops/pallas/fused_conv_block.py,
+// channel-major).  One source, templated on the types of the input, the
+// weights, the operands (what both are rounded to as they are read), the
+// post-ReLU activation (what it is rounded to before the pool) and the
+// output, and on the layouts of the input and the output: NHWC, or
+// channel-major [B, C, H, W].  Three NHWC instances:
 //   f32            f32 operands and accumulation, no tensor cores — the
 //                  float32 path (layers 2 and 3 of the prod net);
 //   bf16_out       the Pallas kernel's numerics: bf16 operands, f32
@@ -17,6 +20,14 @@
 //                  f32 activations with no rounding, f32 output — the
 //                  bfloat16 rung's conv2d_same(compute_dtype="bfloat16")
 //                  -> ReLU -> pool -> BN (layers.py:109-123).
+// and two channel-major ones, fused_conv_block's numerics (those of
+// bf16_out) with channel-major input and output:
+//   cm_bf16        bf16 output (its default out_dtype);
+//   cm_f32         f32 output (out_dtype=float32).
+// Floor pooling at any H: pooled row r reads conv rows 3r..3r+2, which
+// read input rows 3r-1..3r+3, so the last pooled row reads input row
+// h_eff = 3*(H/3) and nothing below it; where h_eff == H that row is the
+// zero padding (the staging loop's y < H test).
 //
 // What bounds it on an H100: at the prod layer-2 shape (48x85x48 -> 16x28
 // x48) a frame needs 16*28*9 conv pixels x 9*48*48 MACs (~84 M MAC) against
@@ -41,19 +52,24 @@ namespace {
 constexpr int kTilePx = 8;                  // pooled columns per block
 constexpr int kTileCols = 3 * kTilePx + 2;  // staged columns, with halo
 
-template <typename In, typename Wt, typename Op, typename Act, typename Out>
+template <typename In, typename Wt, typename Op, typename Act, typename Out,
+          bool InChannelMajor = false, bool OutChannelMajor = false>
 struct Instance {
   using in_t = In;
   using w_t = Wt;
   using op_t = Op;
   using act_t = Act;
   using out_t = Out;
+  static constexpr bool in_cm = InChannelMajor;
+  static constexpr bool out_cm = OutChannelMajor;
 };
 
 using cutdet::bf16;
 using F32 = Instance<float, float, float, float, float>;
 using Bf16Out = Instance<bf16, bf16, bf16, bf16, bf16>;
 using Bf16Operands = Instance<float, float, bf16, float, float>;
+using CmBf16 = Instance<bf16, bf16, bf16, bf16, bf16, true, true>;
+using CmF32 = Instance<bf16, bf16, bf16, bf16, float, true, true>;
 
 template <typename I>
 __global__ void conv_block_kernel(const typename I::in_t* __restrict__ x,
@@ -76,18 +92,31 @@ __global__ void conv_block_kernel(const typename I::in_t* __restrict__ x,
   const int col0 = 3 * px0 - 1;
 
   const typename I::in_t* xb = x + static_cast<size_t>(b) * H * W * Cin;
+  // The tile is [row][column][channel] either way; the loop walks the
+  // input's fastest axis with the threads, so neighbouring threads read
+  // neighbouring addresses: the channel for NHWC, the column for
+  // channel-major.
   for (int i = tid; i < cutdet::kRowsStaged * row_elems; i += nthreads) {
     const int sr = i / row_elems;
     const int rem = i - sr * row_elems;
-    const int sc = rem / Cin;
-    const int c = rem - sc * Cin;
+    int sc, c;
+    if constexpr (I::in_cm) {
+      c = rem / kTileCols;
+      sc = rem - c * kTileCols;
+    } else {
+      sc = rem / Cin;
+      c = rem - sc * Cin;
+    }
     const int y = 3 * r - 1 + sr;
     const int xc = col0 + sc;
     float v = 0.f;
     if (y >= 0 && y < H && xc >= 0 && xc < W) {
-      v = cutdet::operand<Op>(xb + (static_cast<size_t>(y) * W + xc) * Cin + c);
+      const size_t at =
+          I::in_cm ? (static_cast<size_t>(c) * H + y) * W + xc
+                   : (static_cast<size_t>(y) * W + xc) * Cin + c;
+      v = cutdet::operand<Op>(xb + at);
     }
-    tile[i] = v;
+    tile[(sr * kTileCols + sc) * Cin + c] = v;
   }
   __syncthreads();
 
@@ -133,9 +162,10 @@ __global__ void conv_block_kernel(const typename I::in_t* __restrict__ x,
       const float z = fmaxf(__fadd_rn(acc[cy][cx], bo), 0.f);
       m = fmaxf(m, cutdet::round_to<typename I::act_t>(z));
     }
-  cutdet::store(
-      out + ((static_cast<size_t>(b) * Hp + r) * Wp + px) * Cout + o,
-      cutdet::bn_affine(m, scale[o], offset[o]));
+  const size_t at =
+      I::out_cm ? ((static_cast<size_t>(b) * Cout + o) * Hp + r) * Wp + px
+                : ((static_cast<size_t>(b) * Hp + r) * Wp + px) * Cout + o;
+  cutdet::store(out + at, cutdet::bn_affine(m, scale[o], offset[o]));
 }
 
 template <typename I>
@@ -177,3 +207,5 @@ int launch(const void* x, const void* w, const void* bias, const void* scale,
 CUTDET_CONV_BLOCK(cutdet_conv_block_f32, F32)
 CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_out, Bf16Out)
 CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_operands, Bf16Operands)
+CUTDET_CONV_BLOCK(cutdet_conv_block_cm_bf16, CmBf16)
+CUTDET_CONV_BLOCK(cutdet_conv_block_cm_f32, CmF32)

@@ -1,34 +1,44 @@
 """Model assembly: conv backbone + FC head as one eval-mode module.
 
 Counterpart of ``cut_detection_tpu/models/assembly.py`` (``GluedNet``
-``:38-119``, ``fold_preprocess`` ``:140-157``, ``folded_input``
-``:160-170``, the loaders ``:243-285, 307-327``); reference
-frameID/net.py:193-233.  The precision rungs ``float32``, ``bfloat16``
-and ``bfloat16_full`` are ported (``PORTED_PRECISIONS``); the quantized
-rungs are not yet (ROADMAP.md), and the CLI refuses them.
+``:38-137``, ``fold_preprocess`` ``:140-157``, ``folded_input``
+``:160-170``, ``precompute_rings`` ``:173-240``, the loaders ``:243-285,
+307-327``); reference frameID/net.py:193-233.  Every precision rung but
+``int8_mxu`` is ported (``PORTED_PRECISIONS``); the CLI refuses that one.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 import torch
 from torch import nn
 
-import cut_detection_tpu
-from cut_detection_tpu.checkpoint.io import load_bundle
-from cut_detection_tpu.config import ModelParams
 from cut_detection_tpu_torch.checkpoint.convert import params_from_jax
+from cut_detection_tpu_torch.checkpoint.io import load_bundle
+from cut_detection_tpu_torch.config import ModelParams
 from cut_detection_tpu_torch.models.frame_conv import (
     FrameConvNet,
     FrameLinearNet,
 )
+from cut_detection_tpu_torch.models.layers import (
+    POOL_WINDOW,
+    const_conv_ring,
+)
 
-PORTED_PRECISIONS = ("float32", "bfloat16", "bfloat16_full")
+logger = logging.getLogger(__name__)
 
-# The bundled prod classifier ships inside the JAX package.
-_PROD_NET_DIR = os.path.join(os.path.dirname(cut_detection_tpu.__file__),
-                             "prod_net")
+PORTED_PRECISIONS = ("float32", "bfloat16", "bfloat16_full", "uint8_pool",
+                     "uint8_chain")
+# The rungs whose activation scales come from the BN running statistics.
+QUANTIZED_PRECISIONS = ("uint8_pool", "uint8_chain")
+
+# The bundled prod classifier is the JAX package's data, read by path
+# from the sibling directory (the port imports nothing of that package).
+_PROD_NET_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "cut_detection_tpu", "prod_net")
 
 
 class GluedNet(nn.Module):
@@ -59,17 +69,21 @@ class GluedNet(nn.Module):
 
     @property
     def compute_dtype(self):
-        """None (float32), ``"bfloat16"`` (bf16 operands, f32
-        activations) or ``"bfloat16_full"`` (bf16 operands and
-        activations), as the JAX ``GluedNet`` names them."""
+        """None (float32), else the rung's name (``"bfloat16"``: bf16
+        operands, f32 activations; ``"bfloat16_full"``: bf16 operands and
+        activations; the quantized rungs), as the JAX ``GluedNet`` names
+        them."""
         return None if self.precision == "float32" else self.precision
 
     @property
     def device(self) -> torch.device:
         return self.conv.conv_layers[0].conv.weight.device
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(self.conv(x))
+    def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:
+        """``rings``: the ``uint8_chain`` constant terms from
+        ``precompute_rings(net, h, w)`` of this net, or None to compute
+        them in the forward."""
+        return self.linear(self.conv(x, rings))
 
     def num_params(self) -> int:
         """Trainable parameter count (BN running stats excluded)."""
@@ -110,10 +124,77 @@ def folded_input(frames_u8: torch.Tensor) -> torch.Tensor:
     return frames_u8.contiguous()
 
 
+class Rings(tuple):
+    """The ``uint8_chain`` blocks' constant terms, one per conv layer (None
+    for layer 1, whose input is dense), with the ``FrameConvNet`` they
+    were computed from as ``source``."""
+
+    def __new__(cls, rings, source):
+        out = super().__new__(cls, rings)
+        out.source = source
+        return out
+
+
+@torch.inference_mode()
+def precompute_rings(net: GluedNet, h: int, w: int) -> Rings | None:
+    """The ring constants of ``net`` for an input of ``h`` x ``w``, once.
+
+    Each ``uint8_chain`` block after the first adds ``conv(b * 1, W) +
+    bias``, a term that depends only on the weights and the input size;
+    a per-batch step computes it here once per (net, size) and passes it
+    in.  The walk takes the pending affine from the same method as the
+    blocks (``ConvBlock.u8_pending_affine``) and the same strip conv
+    (``const_conv_ring``), so the logits are bit-identical to the
+    in-forward rings.  A folded net and its unfolded copy have the same
+    rings (layer 1, the only folded one, has none), each tagged with its
+    own net.  None for a rung without rings.
+    """
+    conv = net.conv
+    if conv.compute_dtype != "uint8_chain":
+        return None
+    rings, affine = [], None
+    for layer in conv.conv_layers:
+        if affine is None:
+            rings.append(None)  # dense input, no ring
+        else:
+            rings.append(const_conv_ring(affine[1], layer.hwio(),
+                                         layer.conv.bias, h, w))
+        affine = layer.u8_pending_affine()
+        # Floor pooling, the blocks' window.
+        h, w = h // POOL_WINDOW, w // POOL_WINDOW
+    return Rings(rings, conv)
+
+
+def warn_if_stats_unconverged(state_dict: dict, precision: str) -> bool:
+    """Warn when a quantized rung loads conv BN statistics still at their
+    initial values (mean 0, var 1): its activation scales derive from
+    them, so such a checkpoint would clip real activations.  Returns
+    whether it warned.  Counterpart of ``GluedNet._warn_if_stats_
+    unconverged`` (``cut_detection_tpu/models/assembly.py:65-89``)."""
+    if precision not in QUANTIZED_PRECISIONS:
+        return False
+    for key, mean in state_dict.items():
+        if not (key.startswith("conv.") and key.endswith(
+                ".bn.running_mean")):
+            continue
+        var = state_dict[key[:-len("running_mean")] + "running_var"]
+        if mean.abs().max() < 1e-6 and (var - 1.0).abs().max() < 1e-6:
+            logger.warning(
+                "%s: a conv layer's BN running statistics look "
+                "uninitialized (mean=0, var=1).  The quantized activation "
+                "scale is derived from these stats, so an untrained/"
+                "unconverged checkpoint will clip activations and degrade "
+                "accuracy — use float32/bfloat16_full for such models, or "
+                "train until the running stats converge.", precision)
+            return True
+    return False
+
+
 def _glue(model_params: ModelParams, state_dict: dict, device,
           precision: str) -> GluedNet:
     net = GluedNet(model_params, precision)
     net.load_state_dict(state_dict)
+    warn_if_stats_unconverged(state_dict, precision)
     return net.to(device)
 
 

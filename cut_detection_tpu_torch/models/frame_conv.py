@@ -1,9 +1,12 @@
 """FrameConvNet / FrameLinearNet, eval mode.
 
 Counterpart of ``cut_detection_tpu/models/frame_conv.py:44-126`` (the
-dense path, ``:82-100``); reference frameID/net.py:71-189.  Activations
-between blocks are f32, or bf16 at ``"bfloat16_full"``; the adaptive pool
-reads them as f32, as JAX's type promotion does.
+dense path ``:82-100`` and the ``uint8_chain`` path ``:57-80``);
+reference frameID/net.py:71-189.  Activations between blocks are f32, bf16
+at ``"bfloat16_full"`` and ``"uint8_pool"``, and uint8 codes with a
+pending affine at ``"uint8_chain"``, the last block's dequantized to bf16
+before the pool; the adaptive pool reads them as f32, as JAX's type
+promotion does.
 
 - ``FrameConvNet``: N conv blocks (in_ch -> hidden, then hidden ->
   hidden), adaptive average pooling, and a flatten in NCHW order so the
@@ -17,8 +20,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from cut_detection_tpu.config import ConvNetConfig, LinearNetConfig
-from cut_detection_tpu_torch.models.layers import ConvBlock, FCBlock
+from cut_detection_tpu_torch.config import ConvNetConfig, LinearNetConfig
+from cut_detection_tpu_torch.models.layers import (
+    ConvBlock,
+    FCBlock,
+    dequantize_u8,
+)
 from cut_detection_tpu_torch.ops.nn import adaptive_avg_pool, flatten_nchw_order
 
 
@@ -32,10 +39,30 @@ class FrameConvNet(nn.Module):
         self.conv_layers = nn.ModuleList(
             ConvBlock(i, o, compute_dtype)
             for i, o in zip(chans[:-1], chans[1:]))
+        self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.conv_layers:
-            x = layer(x)
+    def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:
+        """``rings``: the ``uint8_chain`` blocks' constant terms from
+        ``assembly.precompute_rings`` of this net; without them each block
+        computes its own.  Rings of another net raise."""
+        if self.compute_dtype == "uint8_chain":
+            if rings is None:
+                rings = [None] * len(self.conv_layers)
+            elif getattr(rings, "source", None) is not self:
+                raise ValueError(
+                    "rings were precomputed from another net's weights; "
+                    "precompute them from this one (assembly."
+                    "precompute_rings)")
+            affine = None
+            for layer, ring in zip(self.conv_layers, rings):
+                x, affine = layer.forward_u8_chain(x, affine, ring)
+            x = dequantize_u8(x, affine)
+        elif rings is not None:
+            raise ValueError(f"rings are uint8_chain's; this net runs "
+                             f"{self.compute_dtype}")
+        else:
+            for layer in self.conv_layers:
+                x = layer(x)
         x = adaptive_avg_pool(x.float(), self.cfg.average_pool_size)
         return flatten_nchw_order(x)
 

@@ -1,6 +1,6 @@
 """Building-block layers: the CNN block and the FC block, eval mode.
 
-Counterpart of ``cut_detection_tpu/models/layers.py:77-123, 302-323``.
+Counterpart of ``cut_detection_tpu/models/layers.py:77-226, 302-323``.
 Reference order (frameID/net.py:33-40, 62-68):
 
 - ``ConvBlock``: conv3x3 (pad 1) -> ReLU -> maxpool 3/3 -> BatchNorm2d;
@@ -13,9 +13,22 @@ passes never call those modules — the conv block runs one fused kernel.
 Activations are NHWC, as in the JAX package.
 
 ``compute_dtype`` is the net's precision rung, as in the JAX blocks:
-``None`` (float32), ``"bfloat16"`` (bf16 operands, f32 activations) or
+``None`` (float32), ``"bfloat16"`` (bf16 operands, f32 activations),
 ``"bfloat16_full"`` (bf16 operands and activations, at the numerics of
-the Pallas kernels K1 and K3, whose instances run here).
+the Pallas kernels K1 and K3, whose instances run here), or one of the
+quantized rungs, which the JAX package computes in XLA and the port in
+plain PyTorch (no Pallas kernel lies behind them):
+
+- ``"uint8_pool"`` (``layers.py:95-106``): XLA's ``bfloat16_full`` conv
+  (``ops.nn.conv2d_same``: the accumulator rounded to bf16, then the bias
+  added in bf16), ReLU, the activation quantized to uint8 codes with a
+  per-channel scale from the BN statistics, max pool on the codes (it
+  commutes with the monotonic quantization), dequantize, BN, bf16 out;
+- ``"uint8_chain"`` (``layers.py:178-220``): the same codes, but the
+  dequantize + BN affine is not applied: it goes to the next block, whose
+  conv takes the codes with the affine's scale folded into its weights and
+  adds the affine's offset as an input-independent constant term, the
+  *ring* (``const_conv_ring``).  ``FrameConvNet`` runs the chain.
 """
 
 from __future__ import annotations
@@ -30,12 +43,69 @@ from cut_detection_tpu_torch.ops.nn import (
     batch_norm_infer,
     bf16_round,
     bn_scale_offset,
+    conv2d_same,
     linear,
+    max_pool,
 )
+
+# The reference's max-pool window and stride (frameID/net.py:90-120); the
+# ring walk of assembly.precompute_rings steps the shapes with it.
+POOL_WINDOW = 3
+
+
+def conv_quantize_scale(mean, var):
+    """Per-channel uint8 scale of a block's post-ReLU activation, from the
+    checkpoint's BN running statistics: ``(mean + 8 sigma) / 255`` covers
+    the pre-pool distribution's tail, so no calibration pass is needed."""
+    # Rounded as XLA rounds it, one f32 operation at a time: the square
+    # root taken in f64 and rounded once (torch's vectorised f32 sqrt on
+    # the CPU is not always correctly rounded), and a tensor divisor
+    # (torch divides by a Python scalar as a product with its reciprocal).
+    # Either would put a channel's scale one ulp off.
+    mean, var = mean.float(), var.float()
+    sigma = torch.sqrt((var + BN_EPS).double()).float()
+    scale = (mean + 8.0 * sigma) / torch.full_like(mean, 255.0)
+    return torch.clamp(scale, min=1e-12)
+
+
+def quantize_pool_u8(z, scale):
+    """f32 post-ReLU activation -> uint8 codes ``clip(rint(z / scale), 0,
+    255)``, max-pooled.  ``torch.round`` rounds half to even, as
+    ``jnp.rint``; the codes are pooled as exact f32 integers."""
+    q = torch.clamp(torch.round(z / scale), 0.0, 255.0)
+    return max_pool(q, POOL_WINDOW).to(torch.uint8)
+
+
+def const_conv_ring(b, kernel, bias, h: int, w: int,
+                    compute_dtype="bfloat16_full"):
+    """``conv2d_same(b * 1[1, h, w, :], kernel, bias)`` without the full
+    canvas: for a 3x3 'same' conv of a constant canvas every interior row
+    is the same, only the top and bottom rows see the zero padding, so a
+    3-row strip and a broadcast of its middle row are exact (each element
+    is the same dot product over the same taps).  The full canvas for
+    ``h < 3`` or a kernel other than 3x3.  Returns ``[1, h, w, C_out]``."""
+    c_in = b.shape[0]
+
+    def canvas(rows):
+        return b.reshape(1, 1, 1, c_in).expand(1, rows, w, c_in)
+
+    if h < 3 or kernel.shape[0] != 3 or kernel.shape[1] != 3:
+        return conv2d_same(canvas(h), kernel, bias,
+                           compute_dtype=compute_dtype)
+    strip = conv2d_same(canvas(3), kernel, bias, compute_dtype=compute_dtype)
+    mid = strip[:, 1:2].expand(1, h - 2, w, strip.shape[3])
+    return torch.cat([strip[:, 0:1], mid, strip[:, 2:3]], dim=1)
+
+
+def dequantize_u8(q, affine, dtype=torch.bfloat16):
+    """Dense activations from a ``(codes, (a, b))`` pair: ``q * a + b``."""
+    a, b = affine
+    return (q.float() * a + b).to(dtype)
 
 
 class ConvBlock(nn.Module):
-    """One CNNLayer, eval mode, as one fused kernel launch.
+    """One CNNLayer, eval mode, as one fused kernel launch at the dense
+    rungs.
 
     A uint8 input is raw BGR with a preprocess-folded kernel
     (``assembly.fold_preprocess``) and goes to ``conv1_block``; a float
@@ -49,7 +119,10 @@ class ConvBlock(nn.Module):
     - ``"bfloat16_full"``: the ``bf16`` instance of ``conv1_block`` (K1),
       then ``bf16_out`` instances of ``conv_block`` (K3) on bf16
       activations; a float input is rounded to bf16 first, as the JAX
-      op rounds it.
+      op rounds it;
+    - ``"uint8_pool"``: plain PyTorch, no kernel (``_forward_u8_pool``);
+    - ``"uint8_chain"``: ``FrameConvNet`` chains the blocks'
+      ``forward_u8_chain``; ``forward`` has no instance for it and raises.
     """
 
     def __init__(self, in_ch: int, out_ch: int, compute_dtype=None):
@@ -72,12 +145,63 @@ class ConvBlock(nn.Module):
         full = self.compute_dtype == "bfloat16_full"
         scale, offset = bn_scale_offset(bn.running_mean, bn.running_var,
                                         bn.weight, bn.bias, rsqrt=not full)
-        kernel = self.conv.weight.permute(2, 3, 1, 0).contiguous()
+        kernel = self.hwio().contiguous()
         if full:
             kernel = kernel.to(torch.bfloat16)
         elif self.compute_dtype == "bfloat16":
             kernel = bf16_round(kernel)
         return kernel, self.conv.bias, scale, offset
+
+    def hwio(self) -> torch.Tensor:
+        """The conv kernel in HWIO [3, 3, C_in, C_out], f32."""
+        return self.conv.weight.permute(2, 3, 1, 0)
+
+    def quantize_scale(self) -> torch.Tensor:
+        bn = self.bn
+        return conv_quantize_scale(bn.running_mean, bn.running_var)
+
+    def u8_pending_affine(self):
+        """The ``uint8_chain`` block's pending affine ``(a, b)``: the
+        dequantize (``* scale``) composed with eval BN (``* s + t``, ``s =
+        gamma * rsqrt(var + eps)``).  The block and
+        ``assembly.precompute_rings`` both take it from here, so the two
+        cannot drift."""
+        bn = self.bn
+        s, t = bn_scale_offset(bn.running_mean, bn.running_var, bn.weight,
+                               bn.bias)
+        return self.quantize_scale() * s.float(), t.float()
+
+    def forward_u8_chain(self, x, affine=None, ring=None):
+        """One ``uint8_chain`` block: ``x`` is the dense input of layer 1
+        (``affine=None``) or the previous block's uint8 codes with their
+        pending ``affine``.  ``ring`` is this block's constant term from
+        ``assembly.precompute_rings``; without it the term is computed
+        here.  Returns ``(codes, this block's pending affine)``."""
+        kernel = self.hwio()
+        if affine is None:
+            z = conv2d_same(x.float(), kernel, self.conv.bias,
+                            compute_dtype="bfloat16_full")
+        else:
+            a, b = affine
+            z = conv2d_same(x.float(), kernel * a[None, None, :, None], None,
+                            compute_dtype="bfloat16_full")
+            if ring is None:
+                ring = const_conv_ring(b, kernel, self.conv.bias, x.shape[1],
+                                       x.shape[2])
+            z = z + ring
+        q = quantize_pool_u8(torch.relu(z).float(), self.quantize_scale())
+        return q, self.u8_pending_affine()
+
+    def _forward_u8_pool(self, x):
+        bn = self.bn
+        z = conv2d_same(x.float(), self.hwio(), self.conv.bias,
+                        compute_dtype="bfloat16_full")
+        scale = self.quantize_scale()
+        q = quantize_pool_u8(torch.relu(z).float(), scale)
+        y = batch_norm_infer(q.float() * scale, bn.running_mean,
+                             bn.running_var, bn.weight, bn.bias)
+        # bf16 between blocks, bfloat16_full's traffic.
+        return y.to(torch.bfloat16)
 
     def freeze(self) -> None:
         """Compute the kernel arguments once for every later call.  Only
@@ -87,6 +211,8 @@ class ConvBlock(nn.Module):
         self._frozen = self.kernel_args()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == "uint8_pool":
+            return self._forward_u8_pool(x)
         args = self.kernel_args()
         full = self.compute_dtype == "bfloat16_full"
         if x.dtype == torch.uint8:
@@ -104,7 +230,7 @@ class ConvBlock(nn.Module):
 class FCBlock(nn.Module):
     """Hidden: linear -> ReLU -> eval BN.  Final: linear alone.  With a
     ``compute_dtype`` the linear's operands are rounded to bf16 (the
-    result stays f32, as in the JAX package at both bf16 rungs)."""
+    result stays f32, as in the JAX package at every rung but float32)."""
 
     def __init__(self, in_f: int, out_f: int, *, hidden: bool,
                  compute_dtype=None):

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "cutdet_conv_block_f32": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_bf16_out": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_bf16_operands": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_cm_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_cm_f32": [_P] * 6 + [_I] * 5 + [_P],
     # x, row_idx, row_w, col_idx, col_w, out, B, H, W, out_h, out_w, stream
     "cutdet_resize_normalize": [_P] * 6 + [_I] * 5 + [_P],
 }

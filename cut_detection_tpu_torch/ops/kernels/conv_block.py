@@ -1,9 +1,21 @@
-"""Mid-stack CNN block, NHWC: ``csrc/conv_block.cu``.
+"""Mid-stack CNN block: ``csrc/conv_block.cu``.
 
-Replaces the Pallas kernel ``fused_conv_block_pm``
-(``cut_detection_tpu/ops/pallas/fused_block_pm.py:112``): conv3x3 (zero
-pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor, any H) -> eval-BN affine.
-One CUDA source, three instances, chosen by ``compute_dtype`` (the JAX
+conv3x3 (zero pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor, any H) ->
+eval-BN affine.  One CUDA source for two Pallas kernels:
+
+- ``conv_block`` replaces ``fused_conv_block_pm``
+  (``cut_detection_tpu/ops/pallas/fused_block_pm.py:112``), NHWC in and
+  out;
+- ``fused_conv_block`` replaces ``fused_conv_block``
+  (``cut_detection_tpu/ops/pallas/fused_conv_block.py:130``, K4), with its
+  signature and defaults: channel-major inside the kernel, bf16 or f32
+  out (the ``cm_bf16`` and ``cm_f32`` instances).  The NHWC <->
+  channel-major permutes its ``channel_major_in`` and ``nhwc_out`` ask
+  for run in torch, where the JAX wrapper has XLA run them; a permute of
+  the kernel's own output is a view, so a chain of NHWC calls copies
+  only its first input.
+
+``conv_block`` has three instances, chosen by ``compute_dtype`` (the JAX
 package's precision names) and ``out_dtype``:
 
 - ``f32`` (``None``): true f32 operands and accumulation — the float32
@@ -31,8 +43,8 @@ float32 and ``bfloat16`` paths use ``ops.nn.bn_scale_offset``
 (``gamma * rsqrt``, as ``batch_norm_infer``); the Pallas kernel computes
 ``gamma / sqrt`` (``rsqrt=False``).
 
-``launches`` counts every launch; ``instance_launches`` counts them by
-instance name.
+``conv_block.launches`` counts every launch of the kernel, by either
+wrapper; ``conv_block.instance_launches`` counts them by instance name.
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ INSTANCES = {
     ("bfloat16", torch.float32): ("bf16_operands", torch.float32),
     ("bfloat16_full", torch.bfloat16): ("bf16_out", torch.bfloat16),
 }
+# fused_conv_block's out_dtype -> its channel-major instance.
+CM_INSTANCES = {torch.bfloat16: "cm_bf16", torch.float32: "cm_f32"}
 
 
 def instance(compute_dtype, out_dtype=torch.float32):
@@ -88,12 +102,20 @@ def conv_block(x, kernel, bias, scale, offset, *, compute_dtype=None,
         return conv_block_plain(x, kernel, bias, scale, offset,
                                 compute_dtype=compute_dtype,
                                 out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_block: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"conv_block takes NHWC [B, H, W, C], got "
                          f"{tuple(x.shape)}")
     b, h, w, cin = x.shape
+    return _launch(name, x, kernel, bias, scale, offset, dtype, out_dtype,
+                   b, h, w, cin, channel_major=False)
+
+
+def _launch(name, x, kernel, bias, scale, offset, dtype, out_dtype, b, h, w,
+            cin, *, channel_major: bool):
+    """Validate, allocate the output ([B, Hp, Wp, Cout], or [B, Cout, Hp,
+    Wp] for a channel-major instance) and launch instance ``name``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_block: unsupported device {x.device}")
     if h < 3 or w < 3:
         raise ValueError(f"conv_block needs H, W >= 3, got {h}x{w}")
     cout = kernel.shape[-1]
@@ -101,12 +123,14 @@ def conv_block(x, kernel, bias, scale, offset, *, compute_dtype=None,
         raise ValueError(f"conv_block supports up to 128 output channels, "
                          f"got {cout}")
     dev = x.device
-    _build.expect(x, "x", dtype, (b, h, w, cin), dev)
+    _build.expect(x, "x", dtype,
+                  (b, cin, h, w) if channel_major else (b, h, w, cin), dev)
     _build.expect(kernel, "kernel", dtype, (3, 3, cin, cout), dev)
     for pname, t in (("bias", bias), ("scale", scale), ("offset", offset)):
         _build.expect(t, pname, torch.float32, (cout,), dev)
-    out = torch.empty((b, h // 3, (w - 3) // 3 + 1, cout), dtype=out_dtype,
-                      device=dev)
+    hp, wp = h // 3, (w - 3) // 3 + 1
+    out = torch.empty((b, cout, hp, wp) if channel_major
+                      else (b, hp, wp, cout), dtype=out_dtype, device=dev)
     if b == 0:
         return out
     fn = getattr(_build.library(), f"cutdet_conv_block_{name}")
@@ -120,4 +144,70 @@ def conv_block(x, kernel, bias, scale, offset, *, compute_dtype=None,
 
 
 conv_block.launches = 0
-conv_block.instance_launches = {name: 0 for name, _ in INSTANCES.values()}
+conv_block.instance_launches = {
+    name: 0 for name in [n for n, _ in INSTANCES.values()]
+    + list(CM_INSTANCES.values())}
+
+
+def _k4_affine(gamma, beta, mean, var):
+    """K4's BN affine: ``s = gamma / sqrt(var + eps)`` and ``t = beta -
+    mean * s``, in f32 (``fused_conv_block.py:171-172``)."""
+    return nn.bn_scale_offset(mean.float(), var.float(), gamma.float(),
+                              beta.float(), rsqrt=False)
+
+
+def fused_conv_block_plain(x, kernel, bias, gamma, beta, mean, var, *,
+                           out_dtype=torch.bfloat16, nhwc_out: bool = True,
+                           channel_major_in: bool = False):
+    """Plain PyTorch version of ``fused_conv_block``: the ``bfloat16_full``
+    plain block (bf16 operands, f32 accumulation, ``relu(acc + bias)``
+    rounded to bf16, pool, K4's BN affine) between the layout permutes."""
+    xn = x.permute(0, 2, 3, 1) if channel_major_in else x
+    s, t = _k4_affine(gamma, beta, mean, var)
+    out = conv_block_plain(xn.to(torch.bfloat16), kernel.to(torch.bfloat16),
+                           bias.float(), s, t, compute_dtype="bfloat16_full",
+                           out_dtype=out_dtype)
+    return out if nhwc_out else out.permute(0, 3, 1, 2)
+
+
+def fused_conv_block(x, kernel, bias, gamma, beta, mean, var, *,
+                     out_dtype=torch.bfloat16, nhwc_out: bool = True,
+                     channel_major_in: bool = False):
+    """K4: one CNNLayer (conv + ReLU + maxpool3 + BN) for C_in >= 8, at
+    ``bfloat16_full`` numerics, with the JAX wrapper's signature: plain
+    version on the CPU, the kernel on CUDA.
+
+    ``x``: NHWC [B, H, W, C_in], or channel-major [B, C_in, H, W] with
+    ``channel_major_in`` (explicit: W == C_in is ambiguous), any float
+    dtype (rounded to bf16); H need not divide by 3.  ``kernel``: HWIO
+    [3, 3, C_in, C_out] (rounded to bf16); ``bias``, ``gamma``, ``beta``,
+    ``mean``, ``var``: [C_out].  Returns [B, H//3, (W-3)//3 + 1, C_out]
+    when ``nhwc_out`` (a view of the kernel's channel-major output), else
+    [B, C_out, H//3, (W-3)//3 + 1], in ``out_dtype`` (bf16 or f32).
+    """
+    if out_dtype not in CM_INSTANCES:
+        raise ValueError(f"fused_conv_block has no instance for out_dtype="
+                         f"{out_dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"fused_conv_block takes a 4-d x, got "
+                         f"{tuple(x.shape)}")
+    cin = kernel.shape[2]
+    if x.shape[1 if channel_major_in else 3] != cin:
+        raise ValueError(f"x {tuple(x.shape)} does not have C_in={cin} "
+                         f"({'channel-major' if channel_major_in else 'NHWC'})")
+    if cin < 8:
+        raise ValueError(f"fused_conv_block needs C_in >= 8, got {cin}")
+    if x.device.type == "cpu":
+        return fused_conv_block_plain(
+            x, kernel, bias, gamma, beta, mean, var, out_dtype=out_dtype,
+            nhwc_out=nhwc_out, channel_major_in=channel_major_in)
+    xcm = (x if channel_major_in else x.permute(0, 3, 1, 2))
+    xcm = xcm.to(torch.bfloat16).contiguous()
+    b, _, h, w = xcm.shape
+    s, t = _k4_affine(gamma, beta, mean, var)
+    out = _launch(CM_INSTANCES[out_dtype], xcm,
+                  kernel.to(torch.bfloat16).contiguous(),
+                  bias.float().contiguous(), s.contiguous(), t.contiguous(),
+                  torch.bfloat16, out_dtype, b, h, w, cin,
+                  channel_major=True)
+    return out.permute(0, 2, 3, 1) if nhwc_out else out

@@ -27,9 +27,6 @@ import functools
 import numpy as np
 import torch
 
-# The size rule lives in the jax-free geometry module.
-from cut_detection_tpu.geometry import reference_resize_dims  # noqa: F401
-
 _COEF_BITS = 11          # OpenCV INTER_RESIZE_COEF_BITS
 _COEF_SCALE = 1 << _COEF_BITS
 

@@ -1,9 +1,9 @@
 """End-to-end inference pipeline of the port: decode -> classify -> segment
 -> CSV.
 
-Counterpart of ``cut_detection_tpu/pipeline.py`` (the bgr path at the
-``float32``, ``bfloat16`` and ``bfloat16_full`` rungs), mirroring the
-reference's segment_video.py:20-77:
+Counterpart of ``cut_detection_tpu/pipeline.py`` (the bgr path at every
+precision rung but ``int8_mxu``), mirroring the reference's
+segment_video.py:20-77:
 
     decode (host thread or subprocess) -> uint8 NHWC BGR batches ->
     [device] layer-1 kernel on raw pixels (preprocess folded into its
@@ -36,18 +36,18 @@ import torch
 
 # ``batch_frames`` is also this module's public name for the batching that
 # ``classify_batches`` expects.
-from cut_detection_tpu.data.video import (
+from cut_detection_tpu_torch.data.video import (
     ParallelVideoReader,
     VideoFrameSource,
     batch_frames,
 )
-from cut_detection_tpu.geometry import reference_resize_dims
-from cut_detection_tpu.utils.profiling import ThroughputMeter
+from cut_detection_tpu_torch.geometry import reference_resize_dims
 from cut_detection_tpu_torch.models.assembly import (
     GluedNet,
     fold_preprocess,
     folded_input,
     load_default_net,
+    precompute_rings,
 )
 from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
     resize_normalize,
@@ -55,6 +55,7 @@ from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
 from cut_detection_tpu_torch.ops.preprocess import normalize_frames
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
 from cut_detection_tpu_torch.segmentation.rle import Segmentation
+from cut_detection_tpu_torch.utils.profiling import ThroughputMeter
 
 logger = logging.getLogger(__name__)
 
@@ -97,7 +98,11 @@ def make_classify_step(net: GluedNet, *,
     The step runs at the net's precision.  Memoized per (net, options),
     as the JAX step is: nets of different precision, and the folded and
     the unfolded copies, are distinct nets.  Each copy's kernel arguments
-    are computed once, here, not in every step.
+    are computed once, here, not in every step; at ``uint8_chain`` its
+    ring constants are computed once per input size, at the first batch
+    of that size (``assembly.precompute_rings``).  The step runs a
+    private copy of the net's weights, so later changes to ``net`` do not
+    reach it and rings from another net cannot: make a new step instead.
     """
     if device_resize is not None:
         device_resize = tuple(int(d) for d in device_resize)
@@ -113,6 +118,7 @@ def make_classify_step(net: GluedNet, *,
     frozen.to(net.device)
     for layer in frozen.conv.conv_layers:
         layer.freeze()
+    ring_cache: dict = {}
 
     @torch.inference_mode()
     def step(frames_u8: torch.Tensor):
@@ -123,7 +129,10 @@ def make_classify_step(net: GluedNet, *,
             if device_resize is not None:
                 x = resize_bilinear(x, *device_resize, exact=True)
             x = folded_input(x) if fold else normalize_frames(x)
-        logits = frozen(x)
+        hw = tuple(x.shape[1:3])
+        if hw not in ring_cache:
+            ring_cache[hw] = precompute_rings(frozen, *hw)
+        logits = frozen(x, ring_cache[hw])
         return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
 
     _STEP_CACHE.setdefault(net, {})[key] = step
@@ -155,7 +164,7 @@ def _resolve_decode_process(decode_process, device: torch.device) -> bool:
 
 def available_decoder() -> str | None:
     """The video decoder this machine has: "cv2" when OpenCV imports, else
-    "native" when the libav decoder of ``cut_detection_tpu.native`` is
+    "native" when the libav decoder of ``data.native_video`` is
     built, else None."""
     try:
         import cv2  # noqa: F401
@@ -163,7 +172,7 @@ def available_decoder() -> str | None:
         return "cv2"
     except ImportError:
         pass
-    from cut_detection_tpu.data import native_video
+    from cut_detection_tpu_torch.data import native_video
 
     return "native" if native_video.available() else None
 
@@ -173,7 +182,7 @@ def _make_source(input_path: str, *, resize: int | None,
     """The in-process decode source (cv2 or the native libav decoder);
     ``resize=None`` yields frames at source resolution."""
     if decoder == "auto":
-        from cut_detection_tpu.data import native_video
+        from cut_detection_tpu_torch.data import native_video
 
         decoder = "native" if native_video.available() else "cv2"
     if decode_workers > 1:
@@ -181,7 +190,9 @@ def _make_source(input_path: str, *, resize: int | None,
             input_path, resize=resize, num_threads=decode_workers,
             chunk_frames=DECODE_CHUNK_FRAMES, backend=decoder)
     if decoder == "native":
-        from cut_detection_tpu.data.native_video import NativeVideoSource
+        from cut_detection_tpu_torch.data.native_video import (
+            NativeVideoSource,
+        )
 
         return NativeVideoSource(input_path, resize=resize)
     return VideoFrameSource(input_path, resize=resize)
@@ -267,7 +278,7 @@ def classify_video(
 
     resize = None if on_device_preprocess else RESIZE
     if _resolve_decode_process(decode_process, device):
-        from cut_detection_tpu.data.shm_loader import ShmDecodeLoader
+        from cut_detection_tpu_torch.data.shm_loader import ShmDecodeLoader
 
         # On the CPU, torch.from_numpy would alias a ring slot that the
         # decoder recycles, so take copies.  On CUDA the synchronous
@@ -279,7 +290,7 @@ def classify_video(
             copy_out=device.type == "cpu", transfer=transfer)
         batches = source
     else:
-        from cut_detection_tpu.data.loader import PrefetchLoader
+        from cut_detection_tpu_torch.data.loader import PrefetchLoader
 
         source = _make_source(input_path, resize=resize,
                               decode_workers=decode_workers, decoder=decoder)
@@ -320,7 +331,7 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     """The device loop of :func:`classify_video` over decoded batches.
 
     ``batches`` yields ``(uint8 [batch_size, H, W, 3] BGR, valid)`` as
-    ``cut_detection_tpu.data.video.batch_frames`` does; ``length`` (the
+    ``data.video.batch_frames`` does; ``length`` (the
     expected frame count) sizes the device score buffer.  The batches'
     ``close()``, when they have one, runs on exit.  ``device_resize`` and
     ``pallas_preprocess`` choose the step (:func:`make_classify_step`),

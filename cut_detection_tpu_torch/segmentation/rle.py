@@ -4,8 +4,8 @@ Counterpart of the host path of ``cut_detection_tpu/segmentation/rle.py``
 (``:107-217``); reference frameID/segmentation.py:26-63.  The per-frame
 reduction (max / argmax) happens on the device in the classify step, so
 only the two ``[N]`` vectors reach this module.  The merge loops use the
-native C++ library (``cut_detection_tpu.native``) when it is built, as
-the JAX package does, and the numpy loops in ``glue`` otherwise.
+native C++ library (``cut_detection_tpu_torch.native``) when it is
+built, as the JAX package does, and the numpy loops in ``glue`` otherwise.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ INVERSE_LAB_ENUM = {v: k for k, v in LAB_ENUM.items()}
 
 
 def _native_available() -> bool:
-    from cut_detection_tpu import native
+    from cut_detection_tpu_torch import native
 
     return native.available()
 
@@ -87,7 +87,7 @@ class Segmentation:
         "python" forces the numpy implementation.
         """
         if backend == "auto" and _native_available():
-            from cut_detection_tpu import native
+            from cut_detection_tpu_torch import native
 
             self.te = native.glue_orphans(self.te, real_threshold,
                                           blank_threshold,
@@ -101,7 +101,7 @@ class Segmentation:
                                   backend: str = "auto") -> None:
         """Merge equal-type adjacent segments (segmentation.py:168-183)."""
         if backend == "auto" and _native_available():
-            from cut_detection_tpu import native
+            from cut_detection_tpu_torch import native
 
             self.te = native.combine_adjacent(self.te, bug_compat=bug_compat)
         else:

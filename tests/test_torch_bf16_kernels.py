@@ -40,6 +40,7 @@ from cut_detection_tpu_torch.ops.kernels.conv1_block import (
     conv1_block_plain,
 )
 from cut_detection_tpu_torch.ops.kernels.conv_block import (
+    CM_INSTANCES,
     INSTANCES,
     conv_block,
     conv_block_plain,
@@ -199,10 +200,12 @@ def test_conv_block_bf16_operands_matches_apply_conv_block(b, h, w, cin):
 
 
 def test_instances_by_compute_dtype():
-    """Each (compute_dtype, out_dtype) names one instance; others raise."""
+    """Each (compute_dtype, out_dtype) names one instance; others raise.
+    The launch counts hold those and K4's channel-major instances."""
     names = [instance(*key)[0] for key in INSTANCES]
     assert names == ["f32", "bf16_operands", "bf16_out"]
-    assert sorted(conv_block.instance_launches) == sorted(names)
+    assert sorted(conv_block.instance_launches) == sorted(
+        names + list(CM_INSTANCES.values()))
     assert sorted(conv1_block.instance_launches) == ["bf16", "f32"]
     for key in (("bfloat16", torch.bfloat16),
                 ("bfloat16_full", torch.float32)):

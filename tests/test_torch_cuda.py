@@ -9,7 +9,8 @@ repository's ``conftest.py`` (which imports jax):
 Tolerances: 1e-4 for f32 block kernels and the ``bf16_operands``
 instance against their plain versions (f32 summation order only, on the
 same bf16-rounded operands); for the instances that round the post-ReLU
-activation to bf16 (K1 and K3's ``bf16_out``), ``tolerance.bf16_check``:
+activation to bf16 (K1, K3's ``bf16_out`` and K4's ``cm_bf16`` and
+``cm_f32``), ``tolerance.bf16_check``:
 one bf16 ulp of the pooled activation, since summation order may move a
 value across a bf16 rounding boundary, plus one ulp of a bf16 output's
 own rounding, and such crossings on at most 0.1% of the elements; 1e-5
@@ -18,6 +19,10 @@ against the plain version's dense matmuls).  The slice at the bf16 rungs:
 identical classes, conf within 2e-2 — such crossings, where a bf16
 activation or a bf16-rounded layer input lands one ulp apart, move logits
 by a few 1e-3 (6.3e-3 at most on ``chip_smoke.py``'s slice stream).
+The slice at the quantized rungs: identical classes, conf within
+``QUANT_CONF_TOL`` of ``chip_smoke.py`` (cuDNN's summation order against
+the CPU's moves a few uint8 codes by one), and no kernel launched on the
+default path: those rungs are plain PyTorch.
 """
 
 import importlib.util
@@ -36,9 +41,12 @@ from cut_detection_tpu_torch.ops.kernels.conv1_block import (
     conv1_block_plain,
 )
 from cut_detection_tpu_torch.ops.kernels.conv_block import (
+    CM_INSTANCES,
     INSTANCES,
     conv_block,
     conv_block_plain,
+    fused_conv_block,
+    fused_conv_block_plain,
 )
 from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
     resize_normalize,
@@ -50,6 +58,7 @@ from cut_detection_tpu_torch.pipeline import batch_frames, classify_batches
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 T = torch.from_numpy
+QUANT_CONF_TOL = 2e-2  # chip_smoke.QUANT_CONF_TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -144,6 +153,42 @@ def test_conv_block_kernel(cuda_dev, h, w, cin, compute_dtype, out_dtype):
         _assert_within_bf16_crossing(got, want, offset)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("nhwc_out", [True, False])
+@pytest.mark.parametrize("channel_major_in", [False, True])
+@pytest.mark.parametrize("out_dtype", list(CM_INSTANCES))
+@pytest.mark.parametrize("h,w,cin", [(48, 85, 48), (16, 28, 48),
+                                     (36, 40, 8), (10, 9, 8)])
+def test_fused_conv_block_kernel(cuda_dev, h, w, cin, out_dtype,
+                                 channel_major_in, nhwc_out):
+    """K4's channel-major instances through its wrapper, every layout,
+    with one launch counted on the instance's name."""
+    rng = np.random.default_rng(h + w)
+    x = T(rng.normal(0, 1, (4, h, w, cin)).astype(np.float32)).to(cuda_dev)
+    if channel_major_in:
+        x = x.permute(0, 3, 1, 2).contiguous()
+    k = T(rng.normal(0, 0.1, (3, 3, cin, 48)).astype(np.float32))
+    bn = [rng.normal(0, 0.1, 48), rng.normal(1, 0.1, 48),
+          rng.normal(0, 0.1, 48), rng.normal(0, 0.5, 48),
+          rng.uniform(0.5, 2, 48)]
+    args = [k.to(cuda_dev)] + [T(a.astype(np.float32)).to(cuda_dev)
+                               for a in bn]
+    kw = {"out_dtype": out_dtype, "nhwc_out": nhwc_out,
+          "channel_major_in": channel_major_in}
+    name = CM_INSTANCES[out_dtype]
+    n = dict(conv_block.instance_launches)
+    got = fused_conv_block(x, *args, **kw)
+    want = fused_conv_block_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert conv_block.instance_launches == {**n, name: n[name] + 1}
+    assert got.dtype == want.dtype == out_dtype
+    assert got.shape == want.shape
+    if not nhwc_out:
+        got, want = got.permute(0, 2, 3, 1), want.permute(0, 2, 3, 1)
+    _, gamma, beta, mean, var = args[1:]
+    s = gamma / torch.sqrt(var + 1e-5)
+    _assert_within_bf16_crossing(got, want, beta - mean * s)
 
 
 @pytest.mark.parametrize("in_h,in_w,out_h,out_w", [
@@ -254,6 +299,54 @@ def test_bf16_slice_on_card_matches_cpu(cuda_dev, precision,
 
 
 @pytest.mark.parametrize("pallas_preprocess", [False, True])
+@pytest.mark.parametrize("precision", ["uint8_pool", "uint8_chain"])
+def test_quantized_slice_on_card_matches_cpu(cuda_dev, precision,
+                                             pallas_preprocess):
+    """The device loop at a quantized rung on the card against the CPU:
+    identical classes, conf within QUANT_CONF_TOL, no block kernel
+    launched (the resize kernel alone with --pallas-preprocess)."""
+    shape = (40, 360, 640, 3) if pallas_preprocess else (40, 144, 256, 3)
+    frames = np.random.default_rng(4).integers(0, 256, shape,
+                                               dtype=np.uint8)
+    opts = ({"device_resize": (144, 256), "pallas_preprocess": True}
+            if pallas_preprocess else {})
+
+    def run(dev):
+        net, _ = load_default_net(dev, precision)
+        return classify_batches(batch_frames(iter(frames), 16), net,
+                                batch_size=16, length=40, print_every=0,
+                                **opts)
+
+    cpu_conf, cpu_pred, _ = run(torch.device("cpu"))
+    before = (resize_normalize.launches, conv1_block.launches,
+              conv_block.launches)
+    conf, pred, stats = run(cuda_dev)
+    after = (resize_normalize.launches, conv1_block.launches,
+             conv_block.launches)
+    assert stats.batches == 3
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        (3 if pallas_preprocess else 0), 0, 0)
+    np.testing.assert_array_equal(pred, cpu_pred)
+    np.testing.assert_allclose(conf, cpu_conf, rtol=0, atol=QUANT_CONF_TOL)
+
+
+def test_bench_block_stage_on_card(cuda_dev):
+    """The bench entry point's block stage at batch 16: K1 -> K4 -> K4 ->
+    head holds the shipped net's classes, with K4 launched twice per call
+    of that graph."""
+    from cut_detection_tpu_torch.scripts import bench_fused_conv1 as bench
+
+    n = dict(conv_block.instance_launches)
+    out = bench.run(batch=16, steps=1, stage="block", device=cuda_dev)
+    calls = 2 + 3 * 1
+    assert conv_block.instance_launches["cm_bf16"] - n["cm_bf16"] == \
+        2 * calls
+    assert out["full_argmax_flips"] == 0
+    assert out["full_max_logit_diff"] < 2e-2
+    assert out["e2e_allfused_fps"] > 0
+
+
+@pytest.mark.parametrize("pallas_preprocess", [False, True])
 def test_on_device_preprocess_on_card_matches_cpu(cuda_dev,
                                                   pallas_preprocess):
     """Raw 360x640 frames resized by the step on the card against the
@@ -285,7 +378,8 @@ def test_on_device_preprocess_on_card_matches_cpu(cuda_dev,
 
 @pytest.mark.parametrize("flags", [
     [], ["--device-resize"], ["--device-resize", "--pallas-preprocess"],
-    ["--precision", "bfloat16"], ["--precision", "bfloat16_full"]])
+    ["--precision", "bfloat16"], ["--precision", "bfloat16_full"],
+    ["--precision", "uint8_pool"], ["--precision", "uint8_chain"]])
 @pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
                                       ("clip_odd.mp4",
                                        "ref_segments_odd.csv")])

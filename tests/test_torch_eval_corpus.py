@@ -1,13 +1,14 @@
-"""The port's bf16 rungs on the labelled eval corpus, on the CPU, held to
-the JAX package's own gates (``tests/test_eval_corpus.py``):
+"""The port's bf16 and quantized rungs on the labelled eval corpus, on
+the CPU, held to the JAX package's own gates
+(``tests/test_eval_corpus.py``):
 
 - ``corpus_a``: frame accuracy >= 0.99, boundary precision and recall
   >= 0.90 (30-frame tolerance);
 - ``corpus_adv``: frame accuracy >= 0.96 — its two 9-frame blocks sit
   on a class boundary (logit margins 0.021 and 0.029) and may glue
   either way;
-- ``corpus_nat``: frame accuracy 1.0 at ``bfloat16_full``, the default
-  gate at ``bfloat16``.
+- ``corpus_nat``: frame accuracy 1.0 at ``bfloat16_full``,
+  ``uint8_pool`` and ``uint8_chain``, the default gate at ``bfloat16``.
 
 ``bfloat16`` has the JAX rung's numerics up to summation order, so on
 ``corpus_adv``, the clip with the smallest margins, its CSV is also the
@@ -47,11 +48,12 @@ def _gate(out, name, frame_min, boundary_min=0.90):
 
 @pytest.mark.parametrize("name,frame_min", [
     ("corpus_a", 0.99), ("corpus_adv", 0.96), ("corpus_nat", 0.99)])
-@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_full"])
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_full",
+                                       "uint8_pool", "uint8_chain"])
 def test_bf16_rungs_hold_the_corpus_gates(tmp_path, precision, name,
                                           frame_min):
     res = _gate(_segment(tmp_path, name, precision), name, frame_min)
-    if name == "corpus_nat" and precision == "bfloat16_full":
+    if name == "corpus_nat" and precision != "bfloat16":
         assert res["frame_accuracy"] == 1.0, res
 
 

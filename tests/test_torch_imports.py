@@ -1,9 +1,14 @@
-"""The port imports and runs without jax.
+"""The port imports and runs without jax and without the JAX package.
 
-A machine that runs the port may have no jax at all, so every module of
-``cut_detection_tpu_torch`` (and ``chip_smoke.py``) is imported in a fresh
-interpreter where ``import jax`` fails, and the CLI segments the golden
-clip there.
+A machine that runs the port may have no jax at all, and the port keeps
+its own copies of what it needs from ``cut_detection_tpu``, so every
+module of ``cut_detection_tpu_torch`` (and ``chip_smoke.py``) is imported
+in a fresh interpreter where ``import jax`` and ``import
+cut_detection_tpu`` both fail, and the CLI segments the golden clip
+there, with the decode in-process and in its spawned subprocess.  The
+subprocess starts from a fresh import, so the guard reaches it through a
+directory first on its path whose ``jax`` and ``cut_detection_tpu``
+packages raise on import.
 """
 
 import ast
@@ -16,16 +21,24 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCK_JAX = """
+BLOCKED = ("jax", "cut_detection_tpu")
+_BLOCK = f"""
 import sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+for _name in {BLOCKED!r}:
+    sys.modules[_name] = None  # any import of it now raises ImportError
 """
 
 
 def _run(code: str, tmp_path) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=REPO)
+    shadow = tmp_path / "blocked"
+    for name in BLOCKED:
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked here')\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(shadow), REPO]))
     return subprocess.run(
-        [sys.executable, "-c", _BLOCK_JAX + textwrap.dedent(code)],
+        [sys.executable, "-c", _BLOCK + textwrap.dedent(code)],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
 
@@ -47,11 +60,36 @@ def test_chip_smoke_imports_only_the_port():
         "numpy", "torch", "cut_detection_tpu_torch"}, roots
 
 
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No port module names ``jax`` or ``cut_detection_tpu`` in an import
+    statement, at any depth (a function-level import only runs when it
+    is called)."""
+    pkg = os.path.join(REPO, "cut_detection_tpu_torch")
+    bad = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    mods = [node.module]
+                else:
+                    continue
+                bad += [(path, m) for m in mods
+                        if m.split(".")[0] in BLOCKED]
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("decode_process", ["off", "on"])
 def test_port_imports_and_runs_without_jax(tmp_path, decode_process):
     """Every port module and ``chip_smoke.py`` import, and the CLI
     segments the golden clip (in-process decode, and the decode
-    subprocess) byte for byte."""
+    subprocess) byte for byte, with jax and the JAX package blocked."""
     out = str(tmp_path / "out.csv")
     clip = os.path.join(REPO, "tests", "golden", "clip.mp4")
     proc = _run(f"""
@@ -59,7 +97,7 @@ def test_port_imports_and_runs_without_jax(tmp_path, decode_process):
         import cut_detection_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
-        assert len(names) >= 20, names
+        assert len(names) >= 30, names
         for name in names:
             importlib.import_module(name)
         sys.path.insert(0, {REPO!r})
@@ -69,6 +107,7 @@ def test_port_imports_and_runs_without_jax(tmp_path, decode_process):
               {out!r}, "--print-every", "0",
               "--decode-process", {decode_process!r}])
         assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
     """, tmp_path)
     assert proc.returncode == 0, proc.stderr
     with open(out, "rb") as f, open(os.path.join(

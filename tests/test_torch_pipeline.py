@@ -280,7 +280,7 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
     """cv2 when it imports, else the native decoder when it is built."""
     import sys
 
-    from cut_detection_tpu.data import native_video
+    from cut_detection_tpu_torch.data import native_video
 
     if not cv2_present:
         monkeypatch.setitem(sys.modules, "cv2", None)
@@ -290,7 +290,6 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--precision", "uint8_pool"], ["--precision", "uint8_chain"],
     ["--precision", "int8_mxu"], ["--transfer", "yuv420"], ["--device-glue"],
     ["--profile", "trace_dir"],
 ])

@@ -228,7 +228,7 @@ def test_step_matches_jax(precision, opts, tol):
 
 def test_precision_is_a_property_of_the_net():
     """One state dict at every rung; the blocks carry the rung's
-    ``compute_dtype``; the quantized rungs are refused."""
+    ``compute_dtype``; ``int8_mxu``, not ported, is refused."""
     nets = {p: load_default_net("cpu", p)[0] for p in PORTED_PRECISIONS}
     sd = nets["float32"].state_dict()
     for p, net in nets.items():
@@ -241,7 +241,7 @@ def test_precision_is_a_property_of_the_net():
         for k, v in net.state_dict().items():
             torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
     with pytest.raises(ValueError, match="not yet ported"):
-        GluedNet(nets["float32"].model_params, "uint8_pool")
+        GluedNet(nets["float32"].model_params, "int8_mxu")
 
 
 @pytest.mark.parametrize("precision,kernel_dtype", [

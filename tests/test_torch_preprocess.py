@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from cut_detection_tpu.ops import preprocess as jax_preprocess
 from cut_detection_tpu.ops import resize as jax_resize
 from cut_detection_tpu.ops.pallas import preprocess_kernel as jax_k5
+from cut_detection_tpu_torch import geometry
 from cut_detection_tpu_torch.ops import preprocess, resize
 from cut_detection_tpu_torch.ops.kernels import resize_normalize as k5
 
@@ -191,6 +192,15 @@ def test_preprocess_u8_batch_matches_jax(size, exact):
 
 
 def test_reference_resize_dims_is_the_shared_rule():
-    assert resize.reference_resize_dims is jax_resize.reference_resize_dims
-    assert resize.reference_resize_dims(1280, 720, 256) == (256, 144)
-    assert resize.reference_resize_dims(427, 240, 256) == (256, 143)
+    """The port's copy of the size rule (``geometry``) gives the JAX
+    package's sizes over a sweep of source sizes and targets."""
+    rng = np.random.default_rng(3)
+    sizes = [(1280, 720), (1920, 1080), (427, 240), (854, 480), (3, 3)]
+    sizes += [tuple(int(v) for v in rng.integers(3, 4000, 2))
+              for _ in range(200)]
+    for w, h in sizes:
+        for target in (256, 128, 97):
+            assert geometry.reference_resize_dims(w, h, target) \
+                == jax_resize.reference_resize_dims(w, h, target), (w, h)
+    assert geometry.reference_resize_dims(1280, 720, 256) == (256, 144)
+    assert geometry.reference_resize_dims(427, 240, 256) == (256, 143)
