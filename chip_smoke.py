@@ -7,7 +7,9 @@ Phases, each of which raises on failure:
 1. device  — a CUDA device is required (there is no CPU path); prints the
              card's name and power limit;
 2. build   — compiles every kernel from ``cut_detection_tpu_torch/csrc``
-             with nvcc and prints the build time and ptxas report;
+             with nvcc and prints the build time and ptxas report (no
+             spills allowed), and the HGMMA (wgmma) instructions of each
+             tensor-core kernel in the library's SASS (none fails);
 3. kernels — each kernel instance against its plain PyTorch version on
              the card at the main path's shapes (batch 128, seeded
              inputs), with the max error, the tolerance (for the
@@ -17,11 +19,11 @@ Phases, each of which raises on failure:
              kernel, its plain version and the library's convolution
              (cuDNN, the block's conv alone at the instance's operand
              type), and the least time the card could take (bytes or
-             operations, from this run's shapes): layer 1 (f32, and K1's
-             bf16 instance) at 144x256 and 143x256, the mid-stack
-             block's three NHWC instances and K4's two channel-major
-             ones at 48x85 and 16x28, the resize + normalize kernel at
-             1280x720 -> 256x144;
+             operations, from this run's shapes): layer 1 (f32, K1's
+             bf16 instance and XLA's bf16_xla) at 144x256 and 143x256,
+             the mid-stack block's five NHWC instances and K4's two
+             channel-major ones at 48x85 and 16x28, the resize +
+             normalize kernel at 1280x720 -> 256x144;
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -42,16 +44,17 @@ Phases, each of which raises on failure:
              ``bfloat16_full``, ``uint8_pool`` and ``uint8_chain``: card
              against CPU (identical classes, confidences within 2e-2 at
              the bf16 rungs and ``QUANT_CONF_TOL`` at the quantized
-             ones), launches by instance (K1 and the bf16-output
-             mid-stack instance at ``bfloat16_full``; none at the
-             quantized rungs, which are plain PyTorch), each rung's step
+             ones), launches by instance (the ``bf16_xla`` instances at
+             ``bfloat16_full``; none at the quantized rungs, which are
+             plain PyTorch), each rung's step
              on a resident batch beside float32's, and each rung's loop
              frames/s;
 8. bench_fused — the port's ``bench_fused_conv1`` entry point at batch
-             128: stage ``block`` with the launch counts read around it
-             (K1 -> K4 -> K4 -> head against the shipped net: no class
-             flips, logits within ``BF16_CONF_TOL``, K4 launched twice
-             per call of that graph), then stages ``all`` and ``mid``;
+             128: K1 -> K4 -> K4 -> head must equal K1 -> K3 -> K3 ->
+             head exactly; stage ``block`` with the launch counts read
+             around it (K4's chain against the shipped net, XLA's
+             numerics: no class flips, logits within ``BENCH_XLA_TOL``),
+             stage ``mid`` (K3's ``bf16_out``) likewise, then ``all``;
              each stage's JSON line is printed;
 9. golden  — when a decoder exists (cv2 or the native decoder), the
              ``segment_video`` CLI's ``main`` on the committed golden
@@ -77,7 +80,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import signal
+import subprocess
 import sys
 import tempfile
 import time
@@ -96,6 +101,10 @@ BF16_CONF_TOL = 2e-2    # the same at the bf16 rungs: one-ulp crossings of
                         # 1e-3 (6.3e-3 at most measured on this stream)
 K5_TOL = 1e-5           # resize + normalize on [0, 1]: two-tap sums
                         # against the plain version's dense matmuls
+BENCH_XLA_TOL = 5e-2    # K1 -> K4 -> K4 (the Pallas kernels' numerics)
+                        # against the shipped bfloat16_full net (XLA's):
+                        # tests/test_torch_bench_fused.py's bar for the
+                        # same comparison (0.0266 at batch 16 on the CPU)
 QUANT_CONF_TOL = 2e-2   # the slice at the quantized rungs, card vs CPU: a
                         # conv output a bf16 ulp apart (cuDNN's summation
                         # order against the CPU's) moves a uint8 code by 1
@@ -155,9 +164,32 @@ def phase_build():
     _build.library()
     log(f"build: nvcc {_build.BuildInfo.seconds:.2f} s, build + load "
         f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, ROOT)}")
+    spills = 0
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line \
+                or "C75" in line:
             log(f"  ptxas: {line.strip()}")
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores and int(stores.group(1)):
+            spills += 1
+    if spills:
+        raise AssertionError(f"ptxas reports spills in {spills} kernels")
+    # The tensor-core kernels must issue wgmma: HGMMA in their SASS.
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            hgmma[name] = 0
+        elif name is not None and "HGMMA" in line:
+            hgmma[name] += 1
+    mma = {n: c for n, c in hgmma.items() if "conv_block_mma" in n}
+    log(f"build: {len(mma)} tensor-core kernels, HGMMA instructions "
+        f"{sorted(set(mma.values()))} each ({sum(mma.values())} in all)")
+    if not mma or 0 in mma.values():
+        raise AssertionError("a tensor-core kernel issues no HGMMA")
 
 
 def _bn(rng, cout):
@@ -185,6 +217,9 @@ def phase_kernels(dev):
         conv1_block,
         conv1_block_plain,
     )
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+        instance as conv1_instance,
+    )
     from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
         _resize_matrices,
         resize_normalize,
@@ -193,7 +228,9 @@ def phase_kernels(dev):
     from cut_detection_tpu_torch.ops.kernels.tolerance import (
         MAX_CROSSING_SHARE,
         bf16_check,
+        xla_check,
     )
+    from cut_detection_tpu_torch.ops.nn import bn_scale_offset
 
     rng = np.random.default_rng(0)
     results = {}
@@ -235,16 +272,23 @@ def phase_kernels(dev):
                 "library_ms": library_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1]}
 
+    def xla_for(scale, bias):
+        """``tolerance.xla_check`` of a block with these BN scale and
+        bias: the bar for XLA's roundings."""
+        return lambda got, want, offset: xla_check(got, want, offset, scale,
+                                                   bias)
+
     def compare(name, shape, fn, plain_fn, library_fn, bound_of,
-                offset=None, to_nhwc=None):
+                offset=None, to_nhwc=None, check=bf16_check):
         """``fn`` against ``plain_fn``: within F32_TOL, or, with the BN
         ``offset`` of an instance that rounds its activation to bf16, by
         ``tolerance.bf16_check``: within one bf16 ulp of the pooled
         activation m (y = m*s + t), plus one ulp of y where the output is
         bf16, on every element, and apart by more than 1e-5 (a one-ulp
         crossing: summation order moved m across a bf16 rounding
-        boundary) on at most 0.1% of them.  ``to_nhwc`` brings a
-        channel-major output to NHWC for that check."""
+        boundary) on at most 0.1% of them; ``xla_check``, the same rule
+        for XLA's roundings, for the ``bf16_xla`` instances.  ``to_nhwc``
+        brings a channel-major output to NHWC for that check."""
         got, ref = fn(), plain_fn()
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -253,7 +297,7 @@ def phase_kernels(dev):
         else:
             if to_nhwc is not None:
                 got, ref = to_nhwc(got), to_nhwc(ref)
-            ok, worst, crossings = bf16_check(got, ref, offset)
+            ok, worst, crossings = check(got, ref, offset)
             cap = MAX_CROSSING_SHARE * got.numel()
             tol = (f"worst err / (2^-7*ulp terms + 1e-5) = {worst:.4f} <= "
                    f"1.001, crossings {crossings} of {got.numel()} <= "
@@ -263,28 +307,40 @@ def phase_kernels(dev):
                       None if library_fn is None else cuda_ms(library_fn),
                       bound_of(got))
 
-    for precision, inst in (("float32", "f32"), ("bfloat16_full", "bf16")):
+    # Layer 1's instances on the prod net's folded layer: f32, K1's
+    # (Pallas numerics, its gamma / sqrt BN) and XLA's (gamma * rsqrt).
+    for precision, numerics in (("float32", "pallas"),
+                                ("bfloat16_full", "pallas"),
+                                ("bfloat16_full", "xla")):
         net, _ = load_default_net(dev, precision)
-        _, bias1, s1, t1 = net.conv.conv_layers[0].kernel_args()
+        layer = net.conv.conv_layers[0]
+        cd = None if precision == "float32" else precision
+        inst = conv1_instance(cd, numerics)[0]
+        bias1 = layer.conv.bias
+        s1, t1 = bn_scale_offset(layer.bn.running_mean, layer.bn.running_var,
+                                 layer.bn.weight, layer.bn.bias,
+                                 rsqrt=inst != "bf16")
         kernel1 = (fold_preprocess(net.state_dict())
                    ["conv.conv_layers.0.conv.weight"].permute(2, 3, 1, 0)
                    .contiguous())
-        cd = None if precision == "float32" else precision
         op = "bf16" if cd else "f32"
         if cd:
             kernel1 = kernel1.to(torch.bfloat16)
+        kw1 = {"compute_dtype": cd, "numerics": numerics}
         for h, w in ((144, 256), (143, 256)):
             x = torch.from_numpy(rng.integers(0, 256, (BATCH, h, w, 3),
                                               dtype=np.uint8)).to(dev)
             args = (x, kernel1, bias1, s1, t1)
             out = compare(
                 f"conv1_block[{inst}]", (BATCH, h, w, 3),
-                lambda: conv1_block(*args, compute_dtype=cd),
-                lambda: conv1_block_plain(*args, compute_dtype=cd),
+                lambda: conv1_block(*args, **kw1),
+                lambda: conv1_block_plain(*args, **kw1),
                 library_conv(x, kernel1, bias1, getattr(torch, {
                     "f32": "float32", "bf16": "bfloat16"}[op])),
                 lambda o: bound((x, kernel1), o, h, w, 3, 48, op),
-                offset=t1 if cd else None)
+                offset=t1 if cd else None,
+                check=xla_for(s1, bias1) if inst == "bf16_xla"
+                else bf16_check)
             if h == 144:
                 results[f"conv1_block[{inst}]"] = out
 
@@ -297,9 +353,10 @@ def phase_kernels(dev):
         bias = torch.from_numpy(rng.normal(0, 0.1, cout)
                                 .astype(np.float32)).to(dev)
         s, t = (torch.from_numpy(a).to(dev) for a in _bn(rng, cout))
-        for (cd, out_dtype), (inst, dtype) in cb.INSTANCES.items():
+        for (cd, out_dtype, numerics), (inst, dtype) in cb.INSTANCES.items():
             args = (x.to(dtype), k.to(dtype), bias, s, t)
-            kw = {"compute_dtype": cd, "out_dtype": out_dtype}
+            kw = {"compute_dtype": cd, "out_dtype": out_dtype,
+                  "numerics": numerics or "pallas"}
             op = "f32" if cd is None else "bf16"
             out = compare(
                 f"conv_block[{inst}]", (BATCH, h, w, cin),
@@ -308,7 +365,8 @@ def phase_kernels(dev):
                 library_conv(args[0], args[1], bias, torch.float32
                              if cd is None else torch.bfloat16),
                 lambda o: bound(args[:2], o, h, w, cin, cout, op),
-                offset=t if cd == "bfloat16_full" else None)
+                offset=t if cd == "bfloat16_full" else None,
+                check=xla_for(s, bias) if numerics == "xla" else bf16_check)
             if h == 48:
                 results[f"conv_block[{inst}]"] = out
 
@@ -432,10 +490,13 @@ PATH_LAUNCHES = {
                           "conv_block[bf16_operands]": 2},
     ("bfloat16", True): {"resize_normalize": 1,
                          "conv_block[bf16_operands]": 3},
-    ("bfloat16_full", False): {"conv1_block[bf16]": 1,
-                               "conv_block[bf16_out]": 2},
+    # XLA's numerics: the last block keeps its BN sum in f32 for the head.
+    ("bfloat16_full", False): {"conv1_block[bf16_xla]": 1,
+                               "conv_block[bf16_xla]": 1,
+                               "conv_block[bf16_xla_f32]": 1},
     ("bfloat16_full", True): {"resize_normalize": 1,
-                              "conv_block[bf16_out]": 3},
+                              "conv_block[bf16_xla]": 2,
+                              "conv_block[bf16_xla_f32]": 1},
     # The quantized rungs are plain PyTorch: no hand-written kernel on
     # the default path, the resize kernel alone with the fused preprocess.
     ("uint8_pool", False): {},
@@ -919,41 +980,62 @@ def phase_bench(dev):
     """The port's ``bench_fused_conv1`` entry point at batch 128.
 
     Stage ``block`` is K4's main path: K1 -> K4 -> K4 -> head
-    (``e2e_allfused``) against the shipped ``bfloat16_full`` net
-    (``e2e_xla``, K1 -> K3 -> K3 -> head), each graph called once for the
-    comparison, once to warm up and ``3 * BENCH_STEPS`` times in its timed
-    loops, so K1, K3's ``bf16_out`` and K4's ``cm_bf16`` each launch twice
-    per call pair; the counts are read around that stage alone and must
-    be exactly those.  No class may flip and the logits must agree within
-    ``BF16_CONF_TOL``.  Then stages ``all`` and ``mid`` (the
-    ``uint8_pool`` layer 1 into K3 twice, against the ``uint8_chain``
-    net; reported).  Each stage's JSON line is printed.  Returns the
-    launches of the ``block`` stage.
+    (``e2e_allfused``, the Pallas kernels' numerics) against the shipped
+    ``bfloat16_full`` net (``e2e_xla``: the ``bf16_xla`` instances), each
+    graph called once for the comparison, once to warm up and ``3 *
+    BENCH_STEPS`` times in its timed loops, so K1 and K4's ``cm_bf16``
+    launch twice per ``e2e_allfused`` call and the net's three
+    instances once per ``e2e_xla`` call; then stage ``mid``, whose
+    ``e2e_u8mid`` runs K3's ``bf16_out`` twice a call.  The counts are
+    read around those two stages and must be exactly those.  K4's logits
+    must equal the all-Pallas chain K1 -> K3 -> K3 (``e2e_k3``) exactly,
+    and hold the shipped net with no class flip and within
+    ``BENCH_XLA_TOL``.  Then stage ``all``.  Each stage's JSON line is
+    printed.  Returns the launches of the ``block`` and ``mid`` stages.
     """
     from cut_detection_tpu_torch.scripts import bench_fused_conv1 as bench
 
+    graphs = bench.build_graphs(dev)
+    frames = bench.seeded_frames(BATCH, dev)
+    with torch.inference_mode():
+        k4 = graphs["e2e_allfused"](frames)
+        k3_diff = (k4 - graphs["e2e_k3"](frames)).abs().max().item()
+    log(f"bench_fused: K1 -> K4 -> K4 against K1 -> K3 -> K3: logits "
+        f"differ by {k3_diff}")
+    if k3_diff != 0.0:
+        raise AssertionError("K4's chain departs from the K3 chain")
+
+    calls = 2 + 3 * BENCH_STEPS  # per graph: compare, warm up, 3 loops
     zero_launches()
     out = bench.run(BATCH, BENCH_STEPS, "block", dev)
     launches = read_launches()
-    calls = 2 + 3 * BENCH_STEPS  # per graph: compare, warm up, 3 loops
     want = dict.fromkeys(launches, 0)
-    for inst in ("conv1_block[bf16]", "conv_block[bf16_out]",
-                 "conv_block[cm_bf16]"):
-        want[inst] = 2 * calls
+    for inst, per_call in (("conv1_block[bf16]", 1),
+                           ("conv_block[cm_bf16]", 2),
+                           ("conv1_block[bf16_xla]", 1),
+                           ("conv_block[bf16_xla]", 1),
+                           ("conv_block[bf16_xla_f32]", 1)):
+        want[inst] = per_call * calls
     log(f"bench_fused: stage block, launches {launches}")
     check_launches("bench_fused block", launches, want)
     log(f"bench_fused: {json.dumps(out)}")
     if out["full_argmax_flips"] != 0 or \
-            out["full_max_logit_diff"] > BF16_CONF_TOL:
+            out["full_max_logit_diff"] > BENCH_XLA_TOL:
         raise AssertionError(f"K1 -> K4 -> K4 departs from the shipped net: "
                              f"{out}")
-    for stage in ("all", "mid"):
-        res = bench.run(BATCH, BENCH_STEPS, stage, dev)
-        log(f"bench_fused: {json.dumps(res)}")
-        if stage == "all" and (res["argmax_flips"] != 0
-                               or res["full_argmax_flips"] != 0):
-            raise AssertionError(f"bench_fused all: class flips {res}")
-    return launches
+    zero_launches()
+    res = bench.run(BATCH, BENCH_STEPS, "mid", dev)
+    mid = read_launches()
+    log(f"bench_fused: stage mid, launches {mid}")
+    want = dict.fromkeys(mid, 0)
+    want["conv_block[bf16_out]"] = 2 * calls
+    check_launches("bench_fused mid", mid, want)
+    log(f"bench_fused: {json.dumps(res)}")
+    res = bench.run(BATCH, BENCH_STEPS, "all", dev)
+    log(f"bench_fused: {json.dumps(res)}")
+    if res["argmax_flips"] != 0 or res["full_argmax_flips"] != 0:
+        raise AssertionError(f"bench_fused all: class flips {res}")
+    return {inst: launches[inst] + mid[inst] for inst in launches}
 
 
 def _child_pids() -> list[int]:
@@ -1021,14 +1103,22 @@ def stop_children() -> None:
 KERNEL_ROWS = (
     ("conv1_block[f32]", "float32", "cut_detection_tpu_torch/csrc/"
      "conv1_block.cu", "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
-    ("conv1_block[bf16]", "bfloat16_full", "cut_detection_tpu_torch/csrc/"
+    ("conv1_block[bf16]", "bench_fused", "cut_detection_tpu_torch/csrc/"
      "conv1_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
+    ("conv1_block[bf16_xla]", "bfloat16_full", "cut_detection_tpu_torch/"
+     "csrc/conv1_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
     ("conv_block[f32]", "float32", "cut_detection_tpu_torch/csrc/"
      "conv_block.cu", "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
     ("conv_block[bf16_operands]", "bfloat16", "cut_detection_tpu_torch/"
      "csrc/conv_block.cu",
      "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
-    ("conv_block[bf16_out]", "bfloat16_full", "cut_detection_tpu_torch/"
+    ("conv_block[bf16_xla]", "bfloat16_full", "cut_detection_tpu_torch/"
+     "csrc/conv_block.cu",
+     "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
+    ("conv_block[bf16_xla_f32]", "bfloat16_full", "cut_detection_tpu_torch/"
+     "csrc/conv_block.cu",
+     "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
+    ("conv_block[bf16_out]", "bench_fused", "cut_detection_tpu_torch/"
      "csrc/conv_block.cu",
      "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
     ("conv_block[cm_bf16]", "bench_fused", "cut_detection_tpu_torch/"

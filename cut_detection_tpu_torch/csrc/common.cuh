@@ -57,6 +57,37 @@ __device__ __forceinline__ float operand(const T* p) {
   }
 }
 
+// What a block does after its conv, to the largest f32 accumulator of a
+// pool window (bias add, ReLU, the roundings and the BN are all monotonic
+// non-decreasing, so they commute with the max pool):
+//   kF32       relu(acc + bias), then the f32 BN affine (float32 and
+//              bfloat16 rungs);
+//   kRoundAct  relu(acc + bias) rounded to bf16, then the f32 BN affine
+//              (the Pallas kernels K1, K3, K4);
+//   kXla       XLA's bfloat16_full: a bf16 rounding after every op — the
+//              accumulator, its sum with the bf16 bias, then the BN's
+//              product with bf16(s) and its sum with bf16(t).  The last
+//              rounding is the store's: a bf16 output rounds the sum, an
+//              f32 one keeps it, as XLA does where it fuses that sum into
+//              an f32 consumer.
+enum class Epilogue { kF32, kRoundAct, kXla };
+
+template <Epilogue E>
+__device__ __forceinline__ float epilogue(float acc, float bias, float s,
+                                          float t) {
+  if constexpr (E == Epilogue::kXla) {
+    const float z = round_to<bf16>(
+        __fadd_rn(round_to<bf16>(acc), round_to<bf16>(bias)));
+    const float m = fmaxf(z, 0.f);
+    return __fadd_rn(round_to<bf16>(__fmul_rn(m, round_to<bf16>(s))),
+                     round_to<bf16>(t));
+  } else {
+    float m = fmaxf(__fadd_rn(acc, bias), 0.f);
+    if constexpr (E == Epilogue::kRoundAct) m = round_to<bf16>(m);
+    return bn_affine(m, s, t);
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);

@@ -1,8 +1,8 @@
 // Layer-1 CNN block, fused: conv3x3 (zero pad 1) + bias -> ReLU ->
 // maxpool 3x3 stride 3 (floor) -> eval-BN affine, from raw uint8 BGR.
 //
-// One source, templated on the weight, activation and output types; two
-// instances:
+// One source, templated on the weight type, the epilogue (common.cuh) and
+// the output type; three instances:
 //   f32   replaces the Pallas kernel conv1_pool_fused
 //         (cut_detection_tpu/ops/pallas/conv1_kernel.py): f32 pixels,
 //         weights, accumulation and output — layer 1 of the float32 path,
@@ -12,7 +12,10 @@
 //         (cut_detection_tpu/ops/pallas/fused_conv1.py, "K1"): bf16
 //         weights, f32 accumulation, relu(acc + bias) rounded to bf16
 //         before the pool, the BN affine in f32, a bf16 output — layer 1
-//         of the bfloat16_full rung.  Unlike K1 it takes any H >= 3.
+//         of the bench's K1 graphs.  Unlike K1 it takes any H >= 3;
+//   bf16_xla  the same bf16 weights and f32 accumulation with XLA's
+//         bfloat16_full epilogue (a bf16 rounding after every op) — the
+//         JAX rung's layer 1, and the port's at bfloat16_full.
 // Both take the preprocess-folded kernel (flip + /255 folded into the
 // weights), so the raw pixels are the input.
 //
@@ -46,16 +49,19 @@ namespace {
 constexpr int kCin = 3;                 // BGR
 constexpr int kTaps = 9 * kCin;         // 3x3 window x channels
 
-template <typename Wt, typename Act, typename Out>
+using cutdet::Epilogue;
+
+template <typename Wt, Epilogue E, typename Out>
 struct Instance {
   using w_t = Wt;
-  using act_t = Act;
+  static constexpr Epilogue epi = E;
   using out_t = Out;
 };
 
 using cutdet::bf16;
-using F32 = Instance<float, float, float>;
-using Bf16 = Instance<bf16, bf16, bf16>;
+using F32 = Instance<float, Epilogue::kF32, float>;
+using Bf16 = Instance<bf16, Epilogue::kRoundAct, bf16>;
+using Bf16Xla = Instance<bf16, Epilogue::kXla, bf16>;
 
 template <typename I>
 __global__ void conv1_block_kernel(const uint8_t* __restrict__ x,
@@ -128,11 +134,9 @@ __global__ void conv1_block_kernel(const uint8_t* __restrict__ x,
 #pragma unroll
     for (int cy = 0; cy < 3; ++cy)
 #pragma unroll
-      for (int cx = 0; cx < 3; ++cx) m = fmaxf(m, __fadd_rn(acc[cy][cx], bo));
-    // relu(max) == max(relu): the ReLU commutes with the pool, and so
-    // does the rounding to the activation type, which is monotonic.
-    const float a = cutdet::round_to<typename I::act_t>(fmaxf(m, 0.f));
-    cutdet::store(orow + px * Cout + o, cutdet::bn_affine(a, so, to));
+      for (int cx = 0; cx < 3; ++cx) m = fmaxf(m, acc[cy][cx]);
+    cutdet::store(orow + px * Cout + o,
+                  cutdet::epilogue<I::epi>(m, bo, so, to));
   }
 }
 
@@ -177,6 +181,16 @@ extern "C" int cutdet_conv1_block_bf16(const void* x, const void* w,
                                        const void* offset, void* out, int B,
                                        int H, int W, int Cout, void* stream) {
   return launch<Bf16>(x, w, bias, scale, offset, out, B, H, W, Cout, stream);
+}
+
+extern "C" int cutdet_conv1_block_bf16_xla(const void* x, const void* w,
+                                           const void* bias,
+                                           const void* scale,
+                                           const void* offset, void* out,
+                                           int B, int H, int W, int Cout,
+                                           void* stream) {
+  return launch<Bf16Xla>(x, w, bias, scale, offset, out, B, H, W, Cout,
+                         stream);
 }
 
 extern "C" const char* cutdet_error_string(int err) {

@@ -5,207 +5,976 @@
 // (cut_detection_tpu/ops/pallas/fused_block_pm.py, NHWC) and
 // fused_conv_block (cut_detection_tpu/ops/pallas/fused_conv_block.py,
 // channel-major).  One source, templated on the types of the input, the
-// weights, the operands (what both are rounded to as they are read), the
-// post-ReLU activation (what it is rounded to before the pool) and the
-// output, and on the layouts of the input and the output: NHWC, or
-// channel-major [B, C, H, W].  Three NHWC instances:
-//   f32            f32 operands and accumulation, no tensor cores — the
+// weights and the output, on the epilogue (common.cuh: what is rounded to
+// bf16 after the conv, and the BN's form) and on the layouts of the input
+// and the output: NHWC, or channel-major [B, C, H, W].  Instances:
+//   f32            f32 operands and accumulation on the CUDA cores — the
 //                  float32 path (layers 2 and 3 of the prod net);
-//   bf16_out       the Pallas kernel's numerics: bf16 operands, f32
-//                  accumulation, relu(acc + bias) rounded to bf16 before
-//                  the pool, bf16 output (its default out_dtype) —
-//                  layers 2 and 3 of the bfloat16_full rung;
-//   bf16_operands  f32 input rounded to bf16 as it is staged, f32 weights
-//                  rounded to bf16 as they are read, f32 accumulation,
-//                  f32 activations with no rounding, f32 output — the
-//                  bfloat16 rung's conv2d_same(compute_dtype="bfloat16")
-//                  -> ReLU -> pool -> BN (layers.py:109-123).
-// and two channel-major ones, fused_conv_block's numerics (those of
-// bf16_out) with channel-major input and output:
-//   cm_bf16        bf16 output (its default out_dtype);
-//   cm_f32         f32 output (out_dtype=float32).
+//   bf16_operands  f32 input and weights rounded to bf16 as they are
+//                  staged, f32 accumulation, f32 activations with no
+//                  rounding, f32 output — the bfloat16 rung;
+//   bf16_xla       bf16 in, XLA's bfloat16_full epilogue (a bf16 rounding
+//                  after every op), bf16 out — the bfloat16_full rung;
+//   bf16_out       bf16 in, the Pallas kernel's numerics: relu(acc + bias)
+//                  rounded to bf16 before the pool, f32 BN, bf16 out;
+//   cm_bf16        fused_conv_block's numerics (bf16_out's) with
+//   cm_f32         channel-major input and output, bf16 or f32 out.
 // Floor pooling at any H: pooled row r reads conv rows 3r..3r+2, which
 // read input rows 3r-1..3r+3, so the last pooled row reads input row
 // h_eff = 3*(H/3) and nothing below it; where h_eff == H that row is the
-// zero padding (the staging loop's y < H test).
+// zero padding.
 //
-// What bounds it on an H100: at the prod layer-2 shape (48x85x48 -> 16x28
-// x48) a frame needs 16*28*9 conv pixels x 9*48*48 MACs (~84 M MAC) against
-// ~0.8 MB of f32 input, ~100 FLOP per byte — compute on the CUDA cores
-// again, not memory.  The fused block keeps the [48,85,48] conv output on
-// chip.
+// What bounds it on an H100: at the prod layer-2 shape (48x85x48 ->
+// 16x28x48) a frame needs 48*84 conv pixels x 9*48*48 MACs (~84 M MAC)
+// against ~0.4 MB of bf16 input (0.8 MB in f32).  In bf16 on the tensor
+// cores (989 TFLOP/s) that is ~0.02 ms a batch of 128 — about the time to
+// read the input once, so neither side dominates and a kernel that keeps
+// both the tensor cores and the loads busy wins.  In f32 on the CUDA cores
+// (67 TFLOP/s) the FMAs bound it at ~0.32 ms a batch.
 //
-// The simple design: one block per (tile of 8 pooled columns, pooled row,
-// frame).  The block stages its 5 x 26 x Cin input window in shared
-// memory as f32 (zero-padded, so any H and W >= 3 work), then each thread
-// owns one (output channel, pooled column) pair and keeps the 3x3 conv
-// outputs under its pool window in nine accumulators: per (dy, c) three
-// weights (read through L1, coalesced over the channel) and, per conv row,
-// five staged pixels feed nine FMAs.  bf16 values are exact in f32, so
-// the rounded operands multiply exactly and the FMAs accumulate in f32.
+// The design, for both routes: persistent blocks, about one per SM, each
+// walking work items (frame, pooled row).  A block stages its weights in
+// shared memory once, not once per item, and each item's five input rows
+// whole (all of W, zero-padded, so any H and W >= 3 work).  Where the
+// weights of all Cout do not fit, the output channels are split into
+// groups (blockIdx.y), each block holding one group's.
+//
+// bf16-operand instances (conv_block_mma): an implicit GEMM on wgmma,
+// M = conv pixels, N = Cout (32, 48 or 64 a group), K = 9 * Cin ordered
+// (dy, dx, c) with Cin zero-padded to 16 per tap.  An M tile of 64 rows is
+// a 3 x 21 band of conv pixels (7 pool windows) plus one pad row; each
+// consumer warpgroup takes the item's tiles in turn (Wp = 28 is exactly
+// 4, one each).  B, the weights, sits in shared memory in wgmma's K-major
+// no-swizzle layout.  A comes from registers: each lane gives ldmatrix.x4
+// the address of its own conv pixel shifted by (dy, dx), so the im2col is
+// an address and is never written; a pixel's staged stride is Cin + 8
+// channels, an odd number of 16-byte units, so an ldmatrix's eight row
+// addresses hit eight bank groups.  The k16 steps go in groups of three,
+// two groups in flight (A in two register sets), with no wgmma under a
+// branch.  After the last step the 64 x N f32 accumulators go to shared
+// memory, and 7 x N threads each take the max of their window's nine
+// values through the instance's epilogue and store it, coalesced over
+// channels (NHWC) or columns (channel-major).  Staging: bf16 NHWC input
+// is copied by cp.async, 16 bytes a thread, by a producer warpgroup into
+// a double buffer while the consumers run the previous item; f32 input
+// (rounded to bf16 as it is staged) and channel-major input (transposed)
+// pass through registers, which is latency-bound, so there every thread
+// of the block stages, between items, issuing all its loads before it
+// uses any loaded value.
+//
+// f32 (conv_block_fma): register-blocked FMAs.  Each thread owns 4 output
+// channels x 1 pooled column (9 conv outputs x 4 = 36 accumulators), and
+// a block runs as many items at once as fill its 384 threads (one at
+// layer 2, three at layer 3).  Weights are staged (cp.async) as
+// [dy][dx][c][Cout] so a thread's 4 channels are one float4, pixels as
+// [row][column][c] (stride Cin + 4, so neighbouring threads' columns fall
+// in other banks); per (dy, 4 input channels) a thread loads 12 weight
+// and 15 pixel float4s for 432 FMAs.  Summation stays f32 fmaf, in
+// another order than the plain version.
 #include <math_constants.h>
 
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kTilePx = 8;                  // pooled columns per block
-constexpr int kTileCols = 3 * kTilePx + 2;  // staged columns, with halo
+using cutdet::bf16;
+using cutdet::Epilogue;
 
-template <typename In, typename Wt, typename Op, typename Act, typename Out,
+constexpr int kBandCols = 21;                 // conv columns of an M tile
+constexpr int kBandWindows = kBandCols / 3;   // pool windows of an M tile
+constexpr int kTileRows = 64;                 // wgmma M
+constexpr int kMaxWarpgroups = 4;
+constexpr int kFmaThreads = 384;
+constexpr size_t kSmemLimit = 227 * 1024;
+
+template <typename In, typename Wt, Epilogue E, typename Out,
           bool InChannelMajor = false, bool OutChannelMajor = false>
 struct Instance {
   using in_t = In;
   using w_t = Wt;
-  using op_t = Op;
-  using act_t = Act;
+  static constexpr Epilogue epi = E;
   using out_t = Out;
   static constexpr bool in_cm = InChannelMajor;
   static constexpr bool out_cm = OutChannelMajor;
 };
 
-using cutdet::bf16;
-using F32 = Instance<float, float, float, float, float>;
-using Bf16Out = Instance<bf16, bf16, bf16, bf16, bf16>;
-using Bf16Operands = Instance<float, float, bf16, float, float>;
-using CmBf16 = Instance<bf16, bf16, bf16, bf16, bf16, true, true>;
-using CmF32 = Instance<bf16, bf16, bf16, bf16, float, true, true>;
+using F32 = Instance<float, float, Epilogue::kF32, float>;
+using Bf16Operands = Instance<float, float, Epilogue::kF32, float>;
+using Bf16Xla = Instance<bf16, bf16, Epilogue::kXla, bf16>;
+using Bf16XlaF32 = Instance<bf16, bf16, Epilogue::kXla, float>;
+using Bf16Out = Instance<bf16, bf16, Epilogue::kRoundAct, bf16>;
+using CmBf16 = Instance<bf16, bf16, Epilogue::kRoundAct, bf16, true, true>;
+using CmF32 = Instance<bf16, bf16, Epilogue::kRoundAct, float, true, true>;
 
-template <typename I>
-__global__ void conv_block_kernel(const typename I::in_t* __restrict__ x,
-                                  const typename I::w_t* __restrict__ w,
-                                  const float* __restrict__ bias,
-                                  const float* __restrict__ scale,
-                                  const float* __restrict__ offset,
-                                  typename I::out_t* __restrict__ out, int H,
-                                  int W, int Cin, int Cout, int Hp, int Wp) {
-  using Op = typename I::op_t;
-  extern __shared__ float tile[];  // [kRowsStaged][kTileCols][Cin]
-  const int px0 = blockIdx.x * kTilePx;
-  const int r = blockIdx.y;  // pooled row
-  const int b = blockIdx.z;  // frame
-  const int o = threadIdx.x;  // output channel (blockDim.x == Cout)
-  const int lpx = threadIdx.y;  // pooled column within the tile
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int row_elems = kTileCols * Cin;
-  const int col0 = 3 * px0 - 1;
+inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-  const typename I::in_t* xb = x + static_cast<size_t>(b) * H * W * Cin;
-  // The tile is [row][column][channel] either way; the loop walks the
-  // input's fastest axis with the threads, so neighbouring threads read
-  // neighbouring addresses: the channel for NHWC, the column for
-  // channel-major.
-  for (int i = tid; i < cutdet::kRowsStaged * row_elems; i += nthreads) {
-    const int sr = i / row_elems;
-    const int rem = i - sr * row_elems;
-    int sc, c;
-    if constexpr (I::in_cm) {
-      c = rem / kTileCols;
-      sc = rem - c * kTileCols;
-    } else {
-      sc = rem / Cin;
-      c = rem - sc * Cin;
-    }
-    const int y = 3 * r - 1 + sr;
-    const int xc = col0 + sc;
-    float v = 0.f;
-    if (y >= 0 && y < H && xc >= 0 && xc < W) {
-      const size_t at =
-          I::in_cm ? (static_cast<size_t>(c) * H + y) * W + xc
-                   : (static_cast<size_t>(y) * W + xc) * Cin + c;
-      v = cutdet::operand<Op>(xb + at);
-    }
-    tile[(sr * kTileCols + sc) * Cin + c] = v;
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (counts[dev] <= 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 1;
   }
-  __syncthreads();
-
-  const int px = px0 + lpx;
-  if (px >= Wp) return;
-
-  float acc[3][3];
-#pragma unroll
-  for (int cy = 0; cy < 3; ++cy)
-#pragma unroll
-    for (int cx = 0; cx < 3; ++cx) acc[cy][cx] = 0.f;
-
-  for (int dy = 0; dy < 3; ++dy) {
-    const typename I::w_t* wrow =
-        w + static_cast<size_t>(dy * 3) * Cin * Cout + o;
-    for (int c = 0; c < Cin; ++c) {
-      // HWIO rows (dy*3 + dx)*Cin + c, dx = 0, 1, 2.
-      const float w0 =
-          cutdet::operand<Op>(wrow + static_cast<size_t>(c) * Cout);
-      const float w1 =
-          cutdet::operand<Op>(wrow + static_cast<size_t>(Cin + c) * Cout);
-      const float w2 =
-          cutdet::operand<Op>(wrow + static_cast<size_t>(2 * Cin + c) * Cout);
-#pragma unroll
-      for (int cy = 0; cy < 3; ++cy) {
-        // Staged columns 3*lpx .. 3*lpx+4 of staged row cy+dy.
-        const float* p = tile + ((cy + dy) * kTileCols + 3 * lpx) * Cin + c;
-        const float v0 = p[0], v1 = p[Cin], v2 = p[2 * Cin];
-        const float v3 = p[3 * Cin], v4 = p[4 * Cin];
-        acc[cy][0] = fmaf(v2, w2, fmaf(v1, w1, fmaf(v0, w0, acc[cy][0])));
-        acc[cy][1] = fmaf(v3, w2, fmaf(v2, w1, fmaf(v1, w0, acc[cy][1])));
-        acc[cy][2] = fmaf(v4, w2, fmaf(v3, w1, fmaf(v2, w0, acc[cy][2])));
-      }
-    }
-  }
-
-  const float bo = bias[o];
-  float m = -CUDART_INF_F;
-#pragma unroll
-  for (int cy = 0; cy < 3; ++cy)
-#pragma unroll
-    for (int cx = 0; cx < 3; ++cx) {
-      const float z = fmaxf(__fadd_rn(acc[cy][cx], bo), 0.f);
-      m = fmaxf(m, cutdet::round_to<typename I::act_t>(z));
-    }
-  const size_t at =
-      I::out_cm ? ((static_cast<size_t>(b) * Cout + o) * Hp + r) * Wp + px
-                : ((static_cast<size_t>(b) * Hp + r) * Wp + px) * Cout + o;
-  cutdet::store(out + at, cutdet::bn_affine(m, scale[o], offset[o]));
+  return counts[dev];
 }
 
-template <typename I>
-int launch(const void* x, const void* w, const void* bias, const void* scale,
-           const void* offset, void* out, int B, int H, int W, int Cin,
-           int Cout, void* stream) {
-  if (B <= 0 || H < 3 || W < 3 || Cin <= 0 || Cout <= 0 ||
-      Cout * kTilePx > 1024 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// Blocks of the persistent grid in x, for ``groups`` output-channel
+// groups in y: as many as fit on the card at once, at most one per item.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int threads, size_t smem, int items,
+                      int groups) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const int total = sm_count() * (per_sm > 0 ? per_sm : 1);
+  const int per_group = total / groups > 0 ? total / groups : 1;
+  return per_group < items ? per_group : items;
+}
+
+// What both kernels know of the shapes.
+struct Shape {
+  int H, W, Cin, Cout, Hp, Wp;
+  int items;  // B * Hp work items (frame, pooled row)
+};
+
+// ---------------------------------------------------------------------
+// Staging helpers.
+
+// ``store(i, load(i))`` for i in [t, total) step nt, with U loads in
+// flight per thread before their stores (the loads' latency, not their
+// bytes, bounds a staging loop).
+template <int U, typename Load, typename Store>
+__device__ __forceinline__ void unrolled(int total, int t, int nt, Load load,
+                                         Store store) {
+  for (int i0 = t; i0 < total; i0 += nt * U) {
+    decltype(load(0)) v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * nt;
+      if (i < total) v[u] = load(i);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * nt;
+      if (i < total) store(i, v[u]);
+    }
   }
-  const int Hp = H / 3;
-  const int Wp = (W - 3) / 3 + 1;
-  const dim3 block(Cout, kTilePx);
-  const dim3 grid((Wp + kTilePx - 1) / kTilePx, Hp, B);
-  const size_t smem =
-      sizeof(float) * cutdet::kRowsStaged * kTileCols * static_cast<size_t>(Cin);
-  cudaError_t err = cutdet::allow_smem(conv_block_kernel<I>, smem);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------
+// Tensor-core route.
+
+// How an item is staged: 16-byte cp.async of bf16 NHWC rows (kCopy);
+// float4 loads of f32 NHWC rows rounded to bf16 (kF32x4); element by
+// element, for channel-major input (transposed) or a Cin the vectors do
+// not divide (kElement).
+enum class Staging { kCopy, kF32x4, kElement };
+
+struct MmaPlan {
+  Shape s;
+  int cpad;    // Cin rounded up to 16
+  int ps;      // staged pixel stride, bf16 elements (cpad + 8)
+  int kc;      // k16 chunks per tap
+  int steps;   // k16 steps: 9 * kc
+  int tiles;   // M tiles per item
+  int wst;     // staged columns: 21 * tiles + 2
+  int nwg;     // consumer warpgroups per block (one more stages)
+  int nbuf;    // staged items: 2 (double buffer) or 1
+  Staging staging;
+  bool wvec;   // weights read 8 output channels at a time
+  uint32_t w_bytes, off_bytes, scratch_bytes, buf_bytes;
+};
+
+// Stage item ``item``'s five input rows, all columns (staged column 0 is
+// input column -1), as bf16 [row][column][ps] with zeros outside the
+// input and in channels >= Cin; run by the producer's ``nt`` threads.
+template <typename I>
+__device__ void stage_mma(const typename I::in_t* __restrict__ x,
+                          unsigned char* dst, int item, const MmaPlan& p,
+                          int t, int nt) {
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const typename I::in_t* xb = x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
+  const int y0 = 3 * r - 1;
+  bf16* out = reinterpret_cast<bf16*>(dst);
+  if constexpr (!I::in_cm && std::is_same_v<typename I::in_t, bf16>) {
+    if (p.staging == Staging::kCopy) {
+      const uint32_t base =
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+      const int chunks = p.cpad / 8;
+      const int total = cutdet::kRowsStaged * p.wst * chunks;
+      for (int i = t; i < total; i += nt) {
+        const int ch = i % chunks;
+        const int rest = i / chunks;
+        const int col = rest % p.wst;
+        const int sr = rest / p.wst;
+        const int y = y0 + sr, xc = col - 1;
+        const bool valid = y >= 0 && y < s.H && xc >= 0 && xc < s.W &&
+                           ch * 8 < s.Cin;
+        const bf16* src =
+            valid ? xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin + ch * 8
+                  : xb;
+        cutdet::cp_async16(base + ((sr * p.wst + col) * p.ps + ch * 8) * 2,
+                           src, valid);
+      }
+      cutdet::cp_async_wait_all();
+      return;
+    }
+  }
+  // The paths below pass the input through registers.  Each thread
+  // issues all its loads (of valid addresses: the frame's first element
+  // stands in for padding) before it touches any loaded value, so they
+  // are in flight together; the masking, rounding and packing come in
+  // the store phase.
+  if constexpr (!I::in_cm && std::is_same_v<typename I::in_t, float>) {
+    if (p.staging == Staging::kF32x4) {
+      const int chunks = p.cpad / 4;
+      auto where = [&](int i, int& c, int& pix, bool& ok) {
+        c = (i % chunks) * 4;
+        pix = i / chunks;
+        const int sr = pix / p.wst, col = pix - sr * p.wst;
+        const int y = y0 + sr, xc = col - 1;
+        ok = y >= 0 && y < s.H && xc >= 0 && xc < s.W && c < s.Cin;
+        return ok ? xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin + c
+                  : xb;
+      };
+      unrolled<4>(
+          cutdet::kRowsStaged * p.wst * chunks, t, nt,
+          [&](int i) {
+            int c, pix;
+            bool ok;
+            return __ldg(reinterpret_cast<const float4*>(where(i, c, pix,
+                                                               ok)));
+          },
+          [&](int i, float4 v) {
+            int c, pix;
+            bool ok;
+            where(i, c, pix, ok);
+            if (!ok) v = make_float4(0.f, 0.f, 0.f, 0.f);
+            *reinterpret_cast<uint2*>(out + pix * p.ps + c) =
+                make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+          });
+      return;
+    }
+  }
+  using In = typename I::in_t;
+  // An element's raw bits, and the same widened to float.
+  auto bits = [](const In* q) -> uint32_t {
+    if constexpr (std::is_same_v<In, float>) {
+      return __float_as_uint(__ldg(q));
+    } else {
+      return __ldg(reinterpret_cast<const unsigned short*>(q));
+    }
+  };
+  auto widen = [](uint32_t v) {
+    if constexpr (std::is_same_v<In, float>) {
+      return __uint_as_float(v);
+    } else {
+      return __uint_as_float(v << 16);
+    }
+  };
+  if constexpr (I::in_cm) {
+    // Channel-major: 32 neighbouring threads take 4 channels of one
+    // staged row at 32 neighbouring columns (coalesced reads along W);
+    // each writes the 4 channels of its pixel as one 8-byte store.
+    const int quads = p.cpad / 4;
+    const int chunks = (p.wst + 31) / 32;
+    auto where = [&](int i, int& sr, int& c, int& col, bool& ok) {
+      const int q = i / 32;
+      const int g = q / chunks;
+      col = (q - g * chunks) * 32 + i % 32;
+      sr = g / quads;
+      c = (g - sr * quads) * 4;
+      const int y = y0 + sr, xc = col - 1;
+      ok = col < p.wst && y >= 0 && y < s.H && xc >= 0 && xc < s.W;
+      return ok ? xb + (static_cast<size_t>(c) * s.H + y) * s.W + xc : xb;
+    };
+    struct Raw {
+      uint32_t v[4];
+    };
+    unrolled<8>(
+        cutdet::kRowsStaged * quads * chunks * 32, t, nt,
+        [&](int i) {
+          int sr, c, col;
+          bool ok;
+          const In* q = where(i, sr, c, col, ok);
+          Raw r;
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+            r.v[ci] = bits(ok && c + ci < s.Cin
+                               ? q + static_cast<size_t>(ci) * s.H * s.W
+                               : xb);
+          return r;
+        },
+        [&](int i, const Raw& r) {
+          int sr, c, col;
+          bool ok;
+          where(i, sr, c, col, ok);
+          if (col >= p.wst) return;
+          float v[4];
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+            v[ci] = ok && c + ci < s.Cin ? widen(r.v[ci]) : 0.f;
+          *reinterpret_cast<uint2*>(out + (sr * p.wst + col) * p.ps + c) =
+              make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+        });
+  } else {
+    // NHWC, Cin not a multiple of the vectors (the unfolded layer 1's 3
+    // channels): a thread takes 8 channels of one pixel, zero-padded, and
+    // writes them as one 16-byte store.
+    const int octs = p.cpad / 8;
+    auto where = [&](int i, int& c, int& pix, bool& ok) {
+      pix = i / octs;
+      c = (i - pix * octs) * 8;
+      const int sr = pix / p.wst, col = pix - sr * p.wst;
+      const int y = y0 + sr, xc = col - 1;
+      ok = y >= 0 && y < s.H && xc >= 0 && xc < s.W;
+      return ok ? xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin + c : xb;
+    };
+    struct Raw {
+      uint32_t v[8];
+    };
+    unrolled<2>(
+        cutdet::kRowsStaged * p.wst * octs, t, nt,
+        [&](int i) {
+          int c, pix;
+          bool ok;
+          const In* q = where(i, c, pix, ok);
+          Raw r;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            r.v[k] = bits(ok && c + k < s.Cin ? q + k : xb);
+          return r;
+        },
+        [&](int i, const Raw& r) {
+          int c, pix;
+          bool ok;
+          where(i, c, pix, ok);
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            v[k] = ok && c + k < s.Cin ? widen(r.v[k]) : 0.f;
+          *reinterpret_cast<uint4*>(out + pix * p.ps + c) =
+              make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        });
+  }
+}
+
+// The weights of output channels n0..n0+N-1, once per block, by all its
+// threads: k step st, channel n, k kk at core matrix (st, n/8, kk/8), row
+// n%8, column kk%8 (wgmma's K-major layout without swizzle).
+template <typename I, int N>
+__device__ void stage_weights_mma(const typename I::w_t* __restrict__ w,
+                                  bf16* wsm, int n0, const MmaPlan& p) {
+  auto at = [](int st, int n, int kk) {
+    return ((st * (N / 8) + n / 8) * 2 + kk / 8) * 64 + (n % 8) * 8 + kk % 8;
+  };
+  auto src = [&](int st, int kk, int o) {
+    const int tap = st / p.kc;
+    const int c = (st - tap * p.kc) * 16 + kk;
+    return c < p.s.Cin && o < p.s.Cout
+               ? w + (static_cast<size_t>(tap) * p.s.Cin + c) * p.s.Cout + o
+               : nullptr;
+  };
+  if (p.wvec) {
+    // Eight consecutive output channels (16 or 32 bytes) a load.
+    unrolled<4>(
+        p.steps * 16 * (N / 8), threadIdx.x, blockDim.x,
+        [&](int i) {
+          const int g = i % (N / 8);
+          const int rest = i / (N / 8);
+          const auto* q = src(rest / 16, rest % 16, n0 + 8 * g);
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (q != nullptr) {
+            if constexpr (std::is_same_v<typename I::w_t, bf16>) {
+              v = __ldg(reinterpret_cast<const uint4*>(q));
+            } else {
+              const float4 lo = __ldg(reinterpret_cast<const float4*>(q));
+              const float4 hi = __ldg(reinterpret_cast<const float4*>(q) + 1);
+              v = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                             pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+            }
+          }
+          return v;
+        },
+        [&](int i, uint4 v) {
+          const int g = i % (N / 8);
+          const int rest = i / (N / 8);
+          const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+          auto* bits = reinterpret_cast<unsigned short*>(wsm);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            bits[at(rest / 16, 8 * g + k, rest % 16)] =
+                static_cast<unsigned short>(words[k / 2] >> (16 * (k % 2)));
+        });
+  } else {
+    unrolled<4>(
+        p.steps * 16 * N, threadIdx.x, blockDim.x,
+        [&](int i) {
+          const int n = i % N;
+          const int rest = i / N;
+          const auto* q = src(rest / 16, rest % 16, n0 + n);
+          return q != nullptr ? cutdet::operand<bf16>(q) : 0.f;
+        },
+        [&](int i, float v) {
+          const int n = i % N;
+          const int rest = i / N;
+          wsm[at(rest / 16, n, rest % 16)] = __float2bfloat16_rn(v);
+        });
+  }
+}
+
+// Steps a consumer warpgroup keeps in each of its two register sets of A;
+// it divides the step count, 9 * (Cin rounded up to 16) / 16.
+constexpr int kGroupSteps = 3;
+
+// One M tile (pool windows 7j..7j+6 of the item) on one warpgroup.
+template <typename I, int N>
+__device__ void mma_tile(uint32_t buf, uint32_t wts, const int* step_off,
+                         float* scratch, int j, int item, int n0, int wg,
+                         const MmaPlan& p, const float* __restrict__ bias,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ offset,
+                         typename I::out_t* __restrict__ out) {
+  const int lt = threadIdx.x % 128;
+  const int warp = lt / 32, lane = lt % 32;
+
+  // This lane's ldmatrix row: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+  // of its warp's 16 rows, as mma.sync's m16k16 A fragment.
+  int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  if (row >= 3 * kBandCols) row = 3 * kBandCols - 1;  // the pad row
+  const int cy = row / kBandCols, cx = row - cy * kBandCols;
+  const uint32_t a_base =
+      buf + ((cy * p.wst + kBandCols * j + cx) * p.ps + (lane >> 4) * 8) * 2;
+  // B of a step: N rows (output channels) x 16 k, core matrices 128 bytes
+  // apart along k and 256 bytes apart along N.
+  auto b_desc = [&](int step) {
+    return cutdet::smem_desc(wts + step * N * 32, 128, 256);
+  };
+
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  using Set = uint32_t[kGroupSteps][4];
+  Set a0, a1;
+  auto load = [&](Set& a, int s0) {
+#pragma unroll
+    for (int i = 0; i < kGroupSteps; ++i)
+      cutdet::ldmatrix_x4(a[i], a_base + step_off[s0 + i]);
+  };
+  auto issue = [&](Set& a, int s0) {
+    cutdet::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kGroupSteps; ++i)
+      cutdet::Wgmma<N>::mma(d, a[i], b_desc(s0 + i));
+    cutdet::wgmma_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) cutdet::fence_operand(d[i]);
+  // Two groups in flight: a set of A registers is reloaded only after
+  // wait_group has retired the group that reads it.
+  load(a0, 0);
+  for (int s0 = 0; s0 < p.steps; s0 += 2 * kGroupSteps) {
+    issue(a0, s0);
+    cutdet::wgmma_wait<1>();
+    if (s0 + kGroupSteps < p.steps) {
+      load(a1, s0 + kGroupSteps);
+      issue(a1, s0 + kGroupSteps);
+    }
+    cutdet::wgmma_wait<1>();
+    if (s0 + 2 * kGroupSteps < p.steps) load(a0, s0 + 2 * kGroupSteps);
+  }
+  cutdet::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) cutdet::fence_operand(d[i]);
+
+  // Accumulators to shared memory, [64][N + 8] f32: thread (warp, lane)
+  // holds rows 16*warp + lane/4 (+8), columns 8i + 2*(lane%4) (+1).
+  constexpr int kStride = N + 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    *reinterpret_cast<float2*>(scratch + (warp * 16 + g) * kStride + c) =
+        make_float2(d[4 * i], d[4 * i + 1]);
+    *reinterpret_cast<float2*>(scratch + (warp * 16 + g + 8) * kStride + c) =
+        make_float2(d[4 * i + 2], d[4 * i + 3]);
+  }
+  cutdet::warpgroup_sync(1 + wg);
+
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const int windows = min(kBandWindows, s.Wp - kBandWindows * j);
+  for (int idx = lt; idx < kBandWindows * N; idx += 128) {
+    int q, o;
+    if constexpr (I::out_cm) {
+      q = idx % kBandWindows;
+      o = idx / kBandWindows;
+    } else {
+      o = idx % N;
+      q = idx / N;
+    }
+    const int oc = n0 + o;
+    if (q >= windows || oc >= s.Cout) continue;
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int wy = 0; wy < 3; ++wy)
+#pragma unroll
+      for (int wx = 0; wx < 3; ++wx)
+        m = fmaxf(m, scratch[(wy * kBandCols + 3 * q + wx) * kStride + o]);
+    const int px = kBandWindows * j + q;
+    const size_t at =
+        I::out_cm ? ((static_cast<size_t>(b) * s.Cout + oc) * s.Hp + r) * s.Wp
+                        + px
+                  : ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + px) * s.Cout
+                        + oc;
+    cutdet::store(out + at, cutdet::epilogue<I::epi>(m, bias[oc], scale[oc],
+                                                     offset[oc]));
+  }
+  cutdet::warpgroup_sync(1 + wg);  // the scratch is free again
+}
+
+// Threads of a tensor-core block: the consumer warpgroups, and a
+// producer warpgroup where the input can be staged by cp.async (bf16
+// NHWC).
+template <typename I>
+constexpr int kMmaThreads =
+    128 * (kMaxWarpgroups +
+           (std::is_same_v<typename I::in_t, bf16> && !I::in_cm ? 1 : 0));
+
+template <typename I, int N>
+__global__ void __launch_bounds__(kMmaThreads<I>)
+    conv_block_mma(const typename I::in_t* __restrict__ x,
+                   const typename I::w_t* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ offset,
+                   typename I::out_t* __restrict__ out, MmaPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int item = blockIdx.x;
+  if (item >= p.s.items) return;
+  const int n0 = blockIdx.y * N;
+  const int wg = threadIdx.x / 128;
+  const bool producer = wg == p.nwg;
+
+  stage_weights_mma<I, N>(w, reinterpret_cast<bf16*>(smem), n0, p);
+  cutdet::fence_proxy_async();  // wgmma reads them through the async proxy
+  // Byte offset of each k step's A rows from a lane's own pixel: tap
+  // (dy, dx) and 16-channel chunk cc.
+  int* step_off = reinterpret_cast<int*>(smem + p.w_bytes);
+  for (int st = threadIdx.x; st < p.steps; st += blockDim.x) {
+    const int tap = st / p.kc, cc = st - tap * p.kc;
+    const int dy = tap / 3, dx = tap - dy * 3;
+    step_off[st] = ((dy * p.wst + dx) * p.ps + cc * 16) * 2;
+  }
+
+  const uint32_t wts = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  float* scratch = reinterpret_cast<float*>(smem + p.w_bytes + p.off_bytes) +
+                   wg * kTileRows * (N + 8);
+  unsigned char* bufs = smem + p.w_bytes + p.off_bytes + p.scratch_bytes;
+  const int pt = threadIdx.x - 128 * p.nwg;  // producer thread
+
+  // cp.async staging: the producer stages item k+1 while the consumers
+  // run item k (with one buffer, the two take turns).  Staging through
+  // registers (f32 rounded to bf16, channel-major transposed, or element
+  // by element) is latency-bound, so there every thread of the block
+  // stages, between items, with its loads in flight together.
+  const bool coop = p.staging != Staging::kCopy;
+  const bool overlap = !coop && p.nbuf == 2;
+  auto stage = [&](int it, unsigned char* dst) {
+    if (coop) {
+      stage_mma<I>(x, dst, it, p, threadIdx.x, blockDim.x);
+    } else if (producer) {
+      stage_mma<I>(x, dst, it, p, pt, 128);
+    }
+  };
+  stage(item, bufs);
+  __syncthreads();
+  for (int k = 0; item < p.s.items; ++k, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    if (producer) {
+      if (overlap && next < p.s.items)
+        stage(next, bufs + ((k + 1) & 1) * p.buf_bytes);
+    } else {
+      const uint32_t cur = static_cast<uint32_t>(__cvta_generic_to_shared(
+          bufs + (overlap ? (k & 1) * p.buf_bytes : 0)));
+      for (int j = wg; j < p.tiles; j += p.nwg) {
+        mma_tile<I, N>(cur, wts, step_off, scratch, j, item, n0, wg, p, bias,
+                       scale, offset, out);
+      }
+    }
+    __syncthreads();
+    if (!overlap && next < p.s.items) {
+      stage(next, bufs);
+      __syncthreads();
+    }
+  }
+}
+
+template <typename I, int N>
+int launch_mma_n(const void* x, const void* w, const void* bias,
+                 const void* scale, const void* offset, void* out,
+                 const MmaPlan& p, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_block_mma<I, N>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_block_kernel<I><<<grid, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  // A producer warpgroup only where it overlaps cp.async staging.
+  const int threads = 128 * (p.nwg + (p.staging == Staging::kCopy ? 1 : 0));
+  const int groups = (p.s.Cout + N - 1) / N;
+  const dim3 grid(
+      persistent_blocks(kernel, threads, smem, p.s.items, groups), groups);
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const typename I::in_t*>(x),
       static_cast<const typename I::w_t*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(scale),
       static_cast<const float*>(offset),
-      static_cast<typename I::out_t*>(out), H, W, Cin, Cout, Hp, Wp);
+      static_cast<typename I::out_t*>(out), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename I>
+int launch_mma(const void* x, const void* w, const void* bias,
+               const void* scale, const void* offset, void* out,
+               const Shape& s, cudaStream_t stream) {
+  // The narrowest N that needs no more channel groups than N = 64 does.
+  const int groups64 = (s.Cout + 63) / 64;
+  const int N = (s.Cout + 31) / 32 <= groups64   ? 32
+                : (s.Cout + 47) / 48 <= groups64 ? 48
+                                                 : 64;
+  using In = typename I::in_t;
+  const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  MmaPlan p{};
+  p.s = s;
+  p.cpad = (s.Cin + 15) / 16 * 16;
+  p.ps = p.cpad + 8;
+  p.kc = p.cpad / 16;
+  p.steps = 9 * p.kc;
+  p.tiles = (s.Wp + kBandWindows - 1) / kBandWindows;
+  p.wst = kBandCols * p.tiles + 2;
+  p.staging = Staging::kElement;
+  if (!I::in_cm && x16 && std::is_same_v<In, bf16> && s.Cin % 8 == 0)
+    p.staging = Staging::kCopy;
+  if (!I::in_cm && x16 && std::is_same_v<In, float> && s.Cin % 4 == 0)
+    p.staging = Staging::kF32x4;
+  p.wvec = s.Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.w_bytes = static_cast<uint32_t>(align128(size_t(p.steps) * N * 32));
+  p.off_bytes = static_cast<uint32_t>(align128(size_t(p.steps) * 4));
+  p.buf_bytes = static_cast<uint32_t>(
+      align128(size_t(cutdet::kRowsStaged) * p.wst * p.ps * 2));
+  const size_t scratch_wg = size_t(kTileRows) * (N + 8) * 4;
+  size_t smem = 0;
+  for (int nwg = p.tiles < kMaxWarpgroups ? p.tiles : kMaxWarpgroups;
+       nwg >= 1 && !smem; --nwg) {
+    for (int nbuf = p.staging == Staging::kCopy ? 2 : 1; nbuf >= 1 && !smem;
+         --nbuf) {
+      const size_t need =
+          p.w_bytes + p.off_bytes + nwg * scratch_wg + nbuf * p.buf_bytes;
+      if (need <= kSmemLimit) {
+        p.nwg = nwg;
+        p.nbuf = nbuf;
+        p.scratch_bytes = static_cast<uint32_t>(nwg * scratch_wg);
+        smem = need;
+      }
+    }
+  }
+  if (!smem) return static_cast<int>(cudaErrorInvalidValue);
+  switch (N) {
+    case 32:
+      return launch_mma_n<I, 32>(x, w, bias, scale, offset, out, p, smem,
+                                 stream);
+    case 48:
+      return launch_mma_n<I, 48>(x, w, bias, scale, offset, out, p, smem,
+                                 stream);
+    default:
+      return launch_mma_n<I, 64>(x, w, bias, scale, offset, out, p, smem,
+                                 stream);
+  }
+}
+
+// ---------------------------------------------------------------------
+// CUDA-core route (f32).
+
+struct FmaPlan {
+  Shape s;
+  int c4;      // Cin rounded up to 4
+  int sp;      // staged pixel stride, floats (c4 + 4)
+  int wst;     // staged columns: 3 * Wp + 2
+  int cg;      // output channels per group (a multiple of 4)
+  int ip;      // items a block stages and runs at once
+  int tasks;   // (cg / 4) * Wp threads' work per item
+  bool vec;    // 16-byte cp.async staging of the input (Cin % 4 == 0)
+  bool wvec;   // ... and of the weights (Cout % 4 == 0)
+  uint32_t w_bytes, buf_bytes;
+};
+
+__device__ void stage_fma(const float* __restrict__ x, float* dst, int item,
+                          const FmaPlan& p) {
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const float* xb = x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
+  const int y0 = 3 * r - 1;
+  if (p.vec) {
+    const uint32_t base =
+        static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    const int chunks = p.c4 / 4;
+    const int total = cutdet::kRowsStaged * p.wst * chunks;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int ch = i % chunks;
+      const int rest = i / chunks;
+      const int col = rest % p.wst;
+      const int sr = rest / p.wst;
+      const int y = y0 + sr, xc = col - 1;
+      const bool valid = y >= 0 && y < s.H && xc >= 0 && xc < s.W;
+      const float* src =
+          valid ? xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin + ch * 4
+                : xb;
+      cutdet::cp_async16(base + (rest * p.sp + ch * 4) * 4, src, valid);
+    }
+    return;
+  }
+  unrolled<8>(
+      cutdet::kRowsStaged * p.wst * p.c4, threadIdx.x, blockDim.x,
+      [&](int i) {
+        const int c = i % p.c4;
+        const int rest = i / p.c4;
+        const int col = rest % p.wst;
+        const int sr = rest / p.wst;
+        const int y = y0 + sr, xc = col - 1;
+        return y >= 0 && y < s.H && xc >= 0 && xc < s.W && c < s.Cin
+                   ? __ldg(xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin +
+                           c)
+                   : 0.f;
+      },
+      [&](int i, float v) { dst[(i / p.c4) * p.sp + i % p.c4] = v; });
+}
+
+// Channels 4*o4..4*o4+3 of the group at pooled column px.
+template <typename I>
+__device__ void fma_task(const float* in, const float* wsm, int o4, int px,
+                         int item, int o_base, const FmaPlan& p,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ offset,
+                         float* __restrict__ out) {
+  float acc[3][3][4];  // conv row, conv column, channel
+#pragma unroll
+  for (int cy = 0; cy < 3; ++cy)
+#pragma unroll
+    for (int cx = 0; cx < 3; ++cx)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[cy][cx][i] = 0.f;
+  const float* wv = wsm + 4 * o4;
+  for (int dy = 0; dy < 3; ++dy) {
+    for (int c = 0; c < p.c4; c += 4) {
+      float4 wq[3][4];  // dx, input channel c + ci -> 4 output channels
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int ci = 0; ci < 4; ++ci)
+          wq[dx][ci] = *reinterpret_cast<const float4*>(
+              wv + ((dy * 3 + dx) * p.c4 + c + ci) * p.cg);
+#pragma unroll
+      for (int cy = 0; cy < 3; ++cy) {
+        // Staged columns 3px .. 3px+4 of staged row cy + dy.
+        const float* prow = in + ((cy + dy) * p.wst + 3 * px) * p.sp + c;
+        float4 v[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+          v[k] = *reinterpret_cast<const float4*>(prow + k * p.sp);
+#pragma unroll
+        for (int cx = 0; cx < 3; ++cx)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float vc[4] = {v[cx + dx].x, v[cx + dx].y, v[cx + dx].z,
+                                 v[cx + dx].w};
+#pragma unroll
+            for (int ci = 0; ci < 4; ++ci) {
+              const float4 wc = wq[dx][ci];
+              float(&a)[4] = acc[cy][cx];
+              a[0] = fmaf(vc[ci], wc.x, a[0]);
+              a[1] = fmaf(vc[ci], wc.y, a[1]);
+              a[2] = fmaf(vc[ci], wc.z, a[2]);
+              a[3] = fmaf(vc[ci], wc.w, a[3]);
+            }
+          }
+      }
+    }
+  }
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  float* orow =
+      out + ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + px) * s.Cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int oc = o_base + 4 * o4 + i;
+    if (oc >= s.Cout) continue;
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int cy = 0; cy < 3; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < 3; ++cx) m = fmaxf(m, acc[cy][cx][i]);
+    orow[oc] = cutdet::epilogue<I::epi>(m, bias[oc], scale[oc], offset[oc]);
+  }
+}
+
+template <typename I>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+    conv_block_fma(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ offset, float* __restrict__ out,
+                   FmaPlan p) {
+  extern __shared__ __align__(128) float fsm[];
+  if (blockIdx.x * p.ip >= p.s.items) return;
+  const int o_base = blockIdx.y * p.cg;
+
+  // Weights of this group, once: [dy*3 + dx][c][cg].
+  float* wsm = fsm;
+  if (p.wvec) {
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(wsm));
+    const int chunks = p.cg / 4;
+    for (int i = threadIdx.x; i < 9 * p.c4 * chunks; i += blockDim.x) {
+      const int ch = i % chunks;
+      const int rest = i / chunks;
+      const int c = rest % p.c4;
+      const int tap = rest / p.c4;
+      const int o = o_base + 4 * ch;
+      const bool valid = c < p.s.Cin && o < p.s.Cout;
+      cutdet::cp_async16(
+          base + i * 16,
+          valid ? w + (static_cast<size_t>(tap) * p.s.Cin + c) * p.s.Cout + o
+                : w,
+          valid);
+    }
+  } else {
+    unrolled<8>(
+        9 * p.c4 * p.cg, threadIdx.x, blockDim.x,
+        [&](int i) {
+          const int o = o_base + i % p.cg;
+          const int rest = i / p.cg;
+          const int c = rest % p.c4;
+          const int tap = rest / p.c4;
+          return c < p.s.Cin && o < p.s.Cout
+                     ? __ldg(w + (static_cast<size_t>(tap) * p.s.Cin + c) *
+                                     p.s.Cout +
+                             o)
+                     : 0.f;
+        },
+        [&](int i, float v) { wsm[i] = v; });
+  }
+  float* bufs = fsm + p.w_bytes / 4;
+
+  // ip items at a time: stage them all, then every thread runs tasks.
+  for (int base = blockIdx.x * p.ip; base < p.s.items;
+       base += gridDim.x * p.ip) {
+    for (int j = 0; j < p.ip && base + j < p.s.items; ++j)
+      stage_fma(x, bufs + j * (p.buf_bytes / 4), base + j, p);
+    cutdet::cp_async_wait_all();
+    __syncthreads();
+    const int per = p.cg / 4;
+    for (int t = threadIdx.x; t < p.ip * p.tasks; t += blockDim.x) {
+      const int j = t / p.tasks;
+      if (base + j >= p.s.items) break;
+      const int tt = t - j * p.tasks;
+      fma_task<I>(bufs + j * (p.buf_bytes / 4), wsm, tt % per, tt / per,
+                  base + j, o_base, p, bias, scale, offset, out);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename I>
+int launch_fma(const void* x, const void* w, const void* bias,
+               const void* scale, const void* offset, void* out,
+               const Shape& s, cudaStream_t stream) {
+  FmaPlan p{};
+  p.s = s;
+  p.c4 = (s.Cin + 3) / 4 * 4;
+  p.sp = p.c4 + 4;
+  p.wst = 3 * s.Wp + 2;
+  p.vec = s.Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.wvec = s.Cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.buf_bytes = static_cast<uint32_t>(
+      align128(size_t(cutdet::kRowsStaged) * p.wst * p.sp * 4));
+  const int cout4 = (s.Cout + 3) / 4 * 4;
+  size_t smem = 0;
+  // The fewest output-channel groups whose weights fit beside one item,
+  // then as many items at once as fill the block's threads and fit.
+  for (int groups = 1; groups <= cout4 / 4 && !smem; ++groups) {
+    const int per = (cout4 / 4 + groups - 1) / groups * 4;
+    const size_t wb = align128(size_t(9) * p.c4 * per * 4);
+    if (wb + p.buf_bytes > kSmemLimit) continue;
+    p.cg = per;
+    p.w_bytes = static_cast<uint32_t>(wb);
+    p.tasks = (per / 4) * s.Wp;
+    p.ip = kFmaThreads / p.tasks > 1 ? kFmaThreads / p.tasks : 1;
+    while (p.ip > 1 && wb + p.ip * size_t(p.buf_bytes) > kSmemLimit) --p.ip;
+    smem = wb + p.ip * size_t(p.buf_bytes);
+  }
+  if (!smem) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (cout4 + p.cg - 1) / p.cg;
+  int threads = (p.ip * p.tasks + 31) / 32 * 32;
+  if (threads > kFmaThreads) threads = kFmaThreads;
+  auto kernel = conv_block_fma<I>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rounds = (s.items + p.ip - 1) / p.ip;
+  const dim3 grid(persistent_blocks(kernel, threads, smem, rounds, groups),
+                  groups);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(scale),
+      static_cast<const float*>(offset), static_cast<float*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename I, bool Fma>
+int launch(const void* x, const void* w, const void* bias, const void* scale,
+           const void* offset, void* out, int B, int H, int W, int Cin,
+           int Cout, void* stream) {
+  if (B <= 0 || H < 3 || W < 3 || Cin <= 0 || Cout <= 0 || Cout > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Shape s{H, W, Cin, Cout, H / 3, (W - 3) / 3 + 1, B * (H / 3)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (Fma) {
+    return launch_fma<I>(x, w, bias, scale, offset, out, s, st);
+  } else {
+    return launch_mma<I>(x, w, bias, scale, offset, out, s, st);
+  }
 }
 
 }  // namespace
 
-#define CUTDET_CONV_BLOCK(NAME, INSTANCE)                                   \
+#define CUTDET_CONV_BLOCK(NAME, INSTANCE, FMA)                              \
   extern "C" int NAME(const void* x, const void* w, const void* bias,        \
                       const void* scale, const void* offset, void* out,      \
                       int B, int H, int W, int Cin, int Cout, void* stream) { \
-    return launch<INSTANCE>(x, w, bias, scale, offset, out, B, H, W, Cin,    \
-                            Cout, stream);                                   \
+    return launch<INSTANCE, FMA>(x, w, bias, scale, offset, out, B, H, W,    \
+                                 Cin, Cout, stream);                         \
   }
 
-CUTDET_CONV_BLOCK(cutdet_conv_block_f32, F32)
-CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_out, Bf16Out)
-CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_operands, Bf16Operands)
-CUTDET_CONV_BLOCK(cutdet_conv_block_cm_bf16, CmBf16)
-CUTDET_CONV_BLOCK(cutdet_conv_block_cm_f32, CmF32)
+CUTDET_CONV_BLOCK(cutdet_conv_block_f32, F32, true)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_operands, Bf16Operands, false)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_xla, Bf16Xla, false)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_xla_f32, Bf16XlaF32, false)
+CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_out, Bf16Out, false)
+CUTDET_CONV_BLOCK(cutdet_conv_block_cm_bf16, CmBf16, false)
+CUTDET_CONV_BLOCK(cutdet_conv_block_cm_f32, CmF32, false)

@@ -6,7 +6,8 @@ reference frameID/net.py:71-189.  Activations between blocks are f32, bf16
 at ``"bfloat16_full"`` and ``"uint8_pool"``, and uint8 codes with a
 pending affine at ``"uint8_chain"``, the last block's dequantized to bf16
 before the pool; the adaptive pool reads them as f32, as JAX's type
-promotion does.
+promotion does.  At ``"bfloat16_full"`` the last block hands the pool its
+BN sum in f32 (``ConvBlock.feeds_head``), as the compiled JAX step does.
 
 - ``FrameConvNet``: N conv blocks (in_ch -> hidden, then hidden ->
   hidden), adaptive average pooling, and a flatten in NCHW order so the
@@ -36,9 +37,10 @@ class FrameConvNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         chans = [cfg.input_channels] + [cfg.hidden_channels] * cfg.n_conv_layers
+        last = len(chans) - 2
         self.conv_layers = nn.ModuleList(
-            ConvBlock(i, o, compute_dtype)
-            for i, o in zip(chans[:-1], chans[1:]))
+            ConvBlock(i, o, compute_dtype, feeds_head=k == last)
+            for k, (i, o) in enumerate(zip(chans[:-1], chans[1:])))
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:

@@ -14,8 +14,9 @@ Activations are NHWC, as in the JAX package.
 
 ``compute_dtype`` is the net's precision rung, as in the JAX blocks:
 ``None`` (float32), ``"bfloat16"`` (bf16 operands, f32 activations),
-``"bfloat16_full"`` (bf16 operands and activations, at the numerics of
-the Pallas kernels K1 and K3, whose instances run here), or one of the
+``"bfloat16_full"`` (bf16 operands and activations, at XLA's numerics
+as the JAX rung computes them: the ``bf16_xla`` kernel instances), or
+one of the
 quantized rungs, which the JAX package computes in XLA and the port in
 plain PyTorch (no Pallas kernel lies behind them):
 
@@ -116,37 +117,41 @@ class ConvBlock(nn.Module):
     - ``"bfloat16"``: the f32 ``conv1_block`` on weights rounded to bf16
       (uint8 pixels are exact in bf16), then the ``bf16_operands``
       instance of ``conv_block``;
-    - ``"bfloat16_full"``: the ``bf16`` instance of ``conv1_block`` (K1),
-      then ``bf16_out`` instances of ``conv_block`` (K3) on bf16
-      activations; a float input is rounded to bf16 first, as the JAX
-      op rounds it;
+    - ``"bfloat16_full"``: the ``bf16_xla`` instances of ``conv1_block``
+      and ``conv_block`` on bf16 activations (XLA's numerics, the JAX
+      rung's: a bf16 rounding after every op); a float input is rounded
+      to bf16 first, as the JAX op rounds it;
+      the block that ``feeds_head`` (the net's last) returns f32 through
+      ``bf16_xla_f32``: its BN sum left unrounded, as XLA leaves it where
+      it fuses that sum into the head's f32 read (the JAX package's
+      compiled step, and so its CLI, computes it so);
     - ``"uint8_pool"``: plain PyTorch, no kernel (``_forward_u8_pool``);
     - ``"uint8_chain"``: ``FrameConvNet`` chains the blocks'
       ``forward_u8_chain``; ``forward`` has no instance for it and raises.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, compute_dtype=None):
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype=None, *,
+                 feeds_head: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS)
         self.compute_dtype = compute_dtype
+        self.feeds_head = feeds_head
         self._frozen = None
 
     def kernel_args(self):
         """(HWIO kernel, bias, BN scale, BN offset) for the block kernels:
         the ones ``freeze`` stored, else computed from the parameters.
         The kernel is bf16 at ``"bfloat16_full"`` and rounded to bf16 (as
-        f32) at ``"bfloat16"``; the BN scale is K1's and K3's ``gamma /
-        sqrt(var + eps)`` at ``"bfloat16_full"``, else ``gamma *
-        rsqrt(var + eps)`` as ``batch_norm_infer``."""
+        f32) at ``"bfloat16"``; the BN scale is ``gamma * rsqrt(var +
+        eps)`` at every rung, as ``batch_norm_infer``."""
         if self._frozen is not None:
             return self._frozen
         bn = self.bn
-        full = self.compute_dtype == "bfloat16_full"
         scale, offset = bn_scale_offset(bn.running_mean, bn.running_var,
-                                        bn.weight, bn.bias, rsqrt=not full)
+                                        bn.weight, bn.bias)
         kernel = self.hwio().contiguous()
-        if full:
+        if self.compute_dtype == "bfloat16_full":
             kernel = kernel.to(torch.bfloat16)
         elif self.compute_dtype == "bfloat16":
             kernel = bf16_round(kernel)
@@ -218,11 +223,12 @@ class ConvBlock(nn.Module):
         if x.dtype == torch.uint8:
             return conv1_block(x.contiguous(), *args,
                                compute_dtype="bfloat16_full" if full
-                               else None)
+                               else None, numerics="xla")
         if full:
             return conv_block(x.to(torch.bfloat16).contiguous(), *args,
                               compute_dtype="bfloat16_full",
-                              out_dtype=torch.bfloat16)
+                              out_dtype=torch.float32 if self.feeds_head
+                              else torch.bfloat16, numerics="xla")
         return conv_block(x.contiguous(), *args,
                           compute_dtype=self.compute_dtype)
 

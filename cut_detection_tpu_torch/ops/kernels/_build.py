@@ -44,9 +44,12 @@ _SIGNATURES = {
     # x, w, bias, scale, offset, out, B, H, W, Cout, stream
     "cutdet_conv1_block": [_P] * 6 + [_I] * 4 + [_P],
     "cutdet_conv1_block_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "cutdet_conv1_block_bf16_xla": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, bias, scale, offset, out, B, H, W, Cin, Cout, stream
     "cutdet_conv_block_f32": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_bf16_out": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_bf16_xla": [_P] * 6 + [_I] * 5 + [_P],
+    "cutdet_conv_block_bf16_xla_f32": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_bf16_operands": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_cm_bf16": [_P] * 6 + [_I] * 5 + [_P],
     "cutdet_conv_block_cm_f32": [_P] * 6 + [_I] * 5 + [_P],

@@ -2,15 +2,21 @@
 
 conv3x3 (zero pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor) -> eval BN,
 from raw pixels: pass the preprocess-folded kernel
-(``models.assembly.fold_preprocess``).  Two instances, chosen by
-``compute_dtype``:
+(``models.assembly.fold_preprocess``).  Three instances, chosen by
+``compute_dtype`` and, at ``"bfloat16_full"``, ``numerics``:
 
 - ``f32`` (``None``) replaces the Pallas kernel ``conv1_pool_fused``
   (``cut_detection_tpu/ops/pallas/conv1_kernel.py:97``): f32 pixels,
   weights, accumulation and output.  The ``bfloat16`` rung runs it too,
   on weights rounded to bf16: uint8 pixels are exact in bf16, so that is
   the rung's own numerics.
-- ``bf16`` (``"bfloat16_full"``) replaces K1, ``fused_conv1_pool``
+- ``bf16_xla`` (``"bfloat16_full"``, ``numerics="xla"``): the JAX
+  package's ``bfloat16_full`` rung as XLA computes layer 1 (the same
+  recipe as ``conv_block[bf16_xla]``: a bf16 rounding after the
+  accumulator, the bias sum and each BN op) — the port's folded layer 1
+  at that rung.
+- ``bf16`` (``"bfloat16_full"``, ``numerics="pallas"``) replaces K1,
+  ``fused_conv1_pool``
   (``cut_detection_tpu/ops/pallas/fused_conv1.py:174``): bf16 weights,
   f32 accumulation, ``relu(acc + bias)`` rounded to bf16 before the
   pool, the BN affine in f32 and a bf16 NHWC output (K1's
@@ -25,9 +31,10 @@ rows in shared memory, holds each channel's 27 weights in registers and
 feeds nine FMAs from five staged pixels (see the .cu header).
 
 The BN affine is computed by the caller: ``s = gamma * rsqrt(var +
-eps)`` (``ops.nn.bn_scale_offset``) for ``conv1_pool_fused``, ``gamma /
-sqrt(var + eps)`` (``rsqrt=False``) for K1.  ``launches`` counts every
-launch; ``instance_launches`` counts them by instance name.
+eps)`` (``ops.nn.bn_scale_offset``) for ``conv1_pool_fused`` and
+``bf16_xla``, ``gamma / sqrt(var + eps)`` (``rsqrt=False``) for K1.
+``launches`` counts every launch; ``instance_launches`` counts them by
+instance name.
 """
 
 from __future__ import annotations
@@ -35,39 +42,55 @@ from __future__ import annotations
 import torch
 
 from cut_detection_tpu_torch.ops.kernels import _build
-from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block_plain
+from cut_detection_tpu_torch.ops.kernels.conv_block import (
+    conv_block_plain,
+    key,
+)
 
-# compute_dtype -> (instance name, kernel dtype, output dtype).
+# (compute_dtype, numerics) -> (instance name, kernel dtype, output
+# dtype); ``numerics`` as in ``conv_block.INSTANCES``.
 INSTANCES = {
-    None: ("f32", torch.float32, torch.float32),
-    "bfloat16_full": ("bf16", torch.bfloat16, torch.bfloat16),
+    (None, None): ("f32", torch.float32, torch.float32),
+    ("bfloat16_full", "xla"): ("bf16_xla", torch.bfloat16, torch.bfloat16),
+    ("bfloat16_full", "pallas"): ("bf16", torch.bfloat16, torch.bfloat16),
 }
 
 
+def instance(compute_dtype, numerics="pallas"):
+    """(instance name, kernel dtype, output dtype) of a combination; raise
+    for one that has no kernel."""
+    k = key(compute_dtype, numerics=numerics)
+    try:
+        return INSTANCES[(k[0], k[2])]
+    except KeyError:
+        raise ValueError(f"conv1_block has no instance for compute_dtype="
+                         f"{compute_dtype!r}") from None
+
+
 def conv1_block_plain(x_u8, kernel, bias, scale, offset, *,
-                      compute_dtype=None):
+                      compute_dtype=None, numerics="pallas"):
     """Plain PyTorch version: uint8 NHWC [B,H,W,Cin] -> [B, H//3,
     (W-3)//3+1, Cout], f32, or bf16 at ``"bfloat16_full"``: the mid-stack
     block's plain version on the pixels as floats."""
     return conv_block_plain(x_u8, kernel, bias, scale, offset,
                             compute_dtype=compute_dtype,
-                            out_dtype=INSTANCES[compute_dtype][2])
+                            out_dtype=instance(compute_dtype, numerics)[2],
+                            numerics=numerics)
 
 
-def conv1_block(x_u8, kernel, bias, scale, offset, *, compute_dtype=None):
+def conv1_block(x_u8, kernel, bias, scale, offset, *, compute_dtype=None,
+                numerics="pallas"):
     """The fused layer-1 block: plain version on the CPU, kernel on CUDA.
 
     ``x_u8``: uint8 [B, H, W, 3] NHWC (H, W >= 3); ``kernel``: HWIO
     [3, 3, 3, Cout], f32, or bf16 at ``"bfloat16_full"``; ``bias``,
     ``scale``, ``offset``: f32 [Cout].
     """
-    if compute_dtype not in INSTANCES:
-        raise ValueError(f"conv1_block has no instance for compute_dtype="
-                         f"{compute_dtype!r}")
-    name, kdtype, out_dtype = INSTANCES[compute_dtype]
+    name, kdtype, out_dtype = instance(compute_dtype, numerics)
     if x_u8.device.type == "cpu":
         return conv1_block_plain(x_u8, kernel, bias, scale, offset,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 numerics=numerics)
     if x_u8.device.type != "cuda":
         raise ValueError(f"conv1_block: unsupported device {x_u8.device}")
     if x_u8.dim() != 4 or x_u8.shape[3] != 3:
@@ -86,9 +109,8 @@ def conv1_block(x_u8, kernel, bias, scale, offset, *, compute_dtype=None):
                       device=dev)
     if b == 0:
         return out
-    lib = _build.library()
-    fn = lib.cutdet_conv1_block_bf16 if name == "bf16" \
-        else lib.cutdet_conv1_block
+    fn = getattr(_build.library(), "cutdet_conv1_block" if name == "f32"
+                 else f"cutdet_conv1_block_{name}")
     rc = fn(x_u8.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
             scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w,
             cout, torch.cuda.current_stream(dev).cuda_stream)

@@ -15,32 +15,41 @@ eval-BN affine.  One CUDA source for two Pallas kernels:
   the kernel's own output is a view, so a chain of NHWC calls copies
   only its first input.
 
-``conv_block`` has three instances, chosen by ``compute_dtype`` (the JAX
-package's precision names) and ``out_dtype``:
+``conv_block`` has five instances, chosen by ``compute_dtype`` (the JAX
+package's precision names), ``out_dtype`` and, at ``"bfloat16_full"``,
+``numerics``:
 
 - ``f32`` (``None``): true f32 operands and accumulation — the float32
   path (layers 2 and 3 of the prod net, and layer 1 of an unfolded net);
 - ``bf16_operands`` (``"bfloat16"``): the ``bfloat16`` rung's block
   (``layers.py:109-123``) — f32 input and weights rounded to bf16 as the
   kernel reads them, f32 accumulation, f32 activations never rounded;
-- ``bf16_out`` (``"bfloat16_full"``, bf16 out): the Pallas kernel's
-  numerics — bf16 operands, f32 accumulation, ``relu(acc + bias)``
-  rounded to bf16 before the pool, bf16 output (its default
-  ``out_dtype``) — the ``bfloat16_full`` rung's layers 2 and 3.
+- ``bf16_xla`` (``"bfloat16_full"``, ``numerics="xla"``): the JAX
+  package's ``bfloat16_full`` rung as XLA computes it (``ops/nn.py:34-70,
+  201-214``) — bf16 operands, f32 accumulation, then a bf16 rounding
+  after every op: the accumulator, its sum with the bias, the BN's
+  product and its sum, with the BN's ``s``, ``t`` rounded to bf16 — the
+  port's layers 1 (unfolded) and 2 at that rung;
+- ``bf16_xla_f32`` (the same, f32 out): XLA's numerics with the last
+  rounding left out, as XLA computes the block whose BN sum it fuses into
+  the head's f32 read (the compiled JAX step keeps that sum in f32) — the
+  port's layer 3 at that rung;
+- ``bf16_out`` (``"bfloat16_full"``, ``numerics="pallas"``): the Pallas
+  kernel's numerics — bf16 operands, f32 accumulation, ``relu(acc +
+  bias)`` rounded to bf16 before the pool, the BN in f32, bf16 output
+  (its default ``out_dtype``) — the bench's K3 graphs.
 
-The plain version also takes ``"bfloat16_full"`` with an f32 output (the
-Pallas kernel's ``out_dtype=float32``), which no path runs and no kernel
-instance has.
+The plain version also takes ``"bfloat16_full"`` Pallas numerics with an
+f32 output (the Pallas kernel's ``out_dtype=float32``), which no path
+runs and no kernel instance has.
 
-What bounds it on an H100: the prod layer-2 shape (48x85x48 in) costs
-~84 M MAC per frame against ~0.8 MB of f32 input — the f32 CUDA cores,
-not memory.  The simple design stages a 5 x 26 x Cin input window per
-block in shared memory and keeps the nine conv outputs under each pool
-window in registers (see the .cu header); ``wgmma`` on bf16 is later work.
+What bounds it on an H100: see the .cu header.  The bf16-operand
+instances run an implicit GEMM on the tensor cores (``wgmma``); ``f32``
+runs register-blocked FMAs on the CUDA cores.
 
 ``scale`` and ``offset`` are the BN affine, computed by the caller: the
-float32 and ``bfloat16`` paths use ``ops.nn.bn_scale_offset``
-(``gamma * rsqrt``, as ``batch_norm_infer``); the Pallas kernel computes
+float32, ``bfloat16`` and ``bf16_xla`` paths use ``ops.nn.bn_scale_offset``
+(``gamma * rsqrt``, as ``batch_norm_infer``); the Pallas kernels compute
 ``gamma / sqrt`` (``rsqrt=False``).
 
 ``conv_block.launches`` counts every launch of the kernel, by either
@@ -54,33 +63,63 @@ import torch
 from cut_detection_tpu_torch.ops import nn
 from cut_detection_tpu_torch.ops.kernels import _build
 
-# (compute_dtype, out_dtype) -> (instance name, dtype of x and kernel).
+# (compute_dtype, out_dtype, numerics) -> (instance name, dtype of x and
+# kernel).  ``numerics`` names XLA's or the Pallas kernels' roundings at
+# ``"bfloat16_full"`` and is None at the rungs where the two agree.
 INSTANCES = {
-    (None, torch.float32): ("f32", torch.float32),
-    ("bfloat16", torch.float32): ("bf16_operands", torch.float32),
-    ("bfloat16_full", torch.bfloat16): ("bf16_out", torch.bfloat16),
+    (None, torch.float32, None): ("f32", torch.float32),
+    ("bfloat16", torch.float32, None): ("bf16_operands", torch.float32),
+    ("bfloat16_full", torch.bfloat16, "xla"): ("bf16_xla", torch.bfloat16),
+    ("bfloat16_full", torch.float32, "xla"): ("bf16_xla_f32",
+                                              torch.bfloat16),
+    ("bfloat16_full", torch.bfloat16, "pallas"): ("bf16_out",
+                                                  torch.bfloat16),
 }
+NUMERICS = ("xla", "pallas")
 # fused_conv_block's out_dtype -> its channel-major instance.
 CM_INSTANCES = {torch.bfloat16: "cm_bf16", torch.float32: "cm_f32"}
 
 
-def instance(compute_dtype, out_dtype=torch.float32):
+def key(compute_dtype, out_dtype=torch.float32, numerics="pallas"):
+    """The ``INSTANCES`` key of a combination: ``numerics`` counts only at
+    ``"bfloat16_full"``."""
+    if numerics not in NUMERICS:
+        raise ValueError(f"numerics must be one of {NUMERICS}, got "
+                         f"{numerics!r}")
+    return (compute_dtype, out_dtype,
+            numerics if compute_dtype == "bfloat16_full" else None)
+
+
+def instance(compute_dtype, out_dtype=torch.float32, numerics="pallas"):
     """(instance name, dtype of x and kernel) of a combination; raise for
     one that has no kernel."""
     try:
-        return INSTANCES[(compute_dtype, out_dtype)]
+        return INSTANCES[key(compute_dtype, out_dtype, numerics)]
     except KeyError:
         raise ValueError(f"conv_block has no instance for compute_dtype="
-                         f"{compute_dtype!r}, out_dtype={out_dtype}") from None
+                         f"{compute_dtype!r}, out_dtype={out_dtype}, "
+                         f"numerics={numerics!r}") from None
 
 
 def conv_block_plain(x, kernel, bias, scale, offset, *, compute_dtype=None,
-                     out_dtype=torch.float32):
+                     out_dtype=torch.float32, numerics="pallas"):
     """Plain PyTorch version: NHWC [B,H,W,Cin] -> [B, H//3, (W-3)//3+1,
     Cout] in ``out_dtype``.  With a ``compute_dtype`` the operands are
     rounded to bf16, and a product of two bf16 values is exact in f32, so
-    the f32 convolution accumulates exactly what the kernel accumulates;
-    ``"bfloat16_full"`` also rounds the post-ReLU activation to bf16."""
+    the f32 convolution accumulates exactly what the kernel accumulates.
+    At ``"bfloat16_full"`` the Pallas numerics round the post-ReLU
+    activation to bf16; XLA's run the port's own ops, which round after
+    every op as XLA does: ``conv2d_same``'s bf16 accumulator and bias sum,
+    then the ReLU, the pool and the BN affine on bf16."""
+    key(compute_dtype, out_dtype, numerics)
+    if compute_dtype == "bfloat16_full" and numerics == "xla":
+        z = torch.relu(nn.conv2d_same(x, kernel, bias,
+                                      compute_dtype="bfloat16_full"))
+        m = nn.max_pool(z, 3)
+        if out_dtype == torch.bfloat16:
+            return nn.bn_affine(m, scale, offset)
+        # The product rounded to bf16, the sum kept in f32.
+        return (m * scale.to(m.dtype)).float() + nn.bf16_round(offset)
     conv_dtype = None if compute_dtype is None else "bfloat16"
     z = torch.relu(nn.conv2d_same(x.float(), kernel.float(), bias,
                                   compute_dtype=conv_dtype))
@@ -90,18 +129,18 @@ def conv_block_plain(x, kernel, bias, scale, offset, *, compute_dtype=None,
 
 
 def conv_block(x, kernel, bias, scale, offset, *, compute_dtype=None,
-               out_dtype=torch.float32):
+               out_dtype=torch.float32, numerics="pallas"):
     """The fused mid-stack block: plain version on the CPU, kernel on CUDA.
 
     ``x``: NHWC [B, H, W, Cin] (H, W >= 3) and ``kernel``: HWIO [3, 3,
     Cin, Cout], both f32, or both bf16 at ``"bfloat16_full"``; ``bias``,
     ``scale``, ``offset``: f32 [Cout].
     """
-    name, dtype = instance(compute_dtype, out_dtype)
+    name, dtype = instance(compute_dtype, out_dtype, numerics)
     if x.device.type == "cpu":
         return conv_block_plain(x, kernel, bias, scale, offset,
                                 compute_dtype=compute_dtype,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, numerics=numerics)
     if x.dim() != 4:
         raise ValueError(f"conv_block takes NHWC [B, H, W, C], got "
                          f"{tuple(x.shape)}")
@@ -119,7 +158,7 @@ def _launch(name, x, kernel, bias, scale, offset, dtype, out_dtype, b, h, w,
     if h < 3 or w < 3:
         raise ValueError(f"conv_block needs H, W >= 3, got {h}x{w}")
     cout = kernel.shape[-1]
-    if cout * 8 > 1024:
+    if cout > 128:
         raise ValueError(f"conv_block supports up to 128 output channels, "
                          f"got {cout}")
     dev = x.device
@@ -166,7 +205,7 @@ def fused_conv_block_plain(x, kernel, bias, gamma, beta, mean, var, *,
     s, t = _k4_affine(gamma, beta, mean, var)
     out = conv_block_plain(xn.to(torch.bfloat16), kernel.to(torch.bfloat16),
                            bias.float(), s, t, compute_dtype="bfloat16_full",
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, numerics="pallas")
     return out if nhwc_out else out.permute(0, 3, 1, 2)
 
 

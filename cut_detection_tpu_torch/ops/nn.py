@@ -123,11 +123,19 @@ def bn_scale_offset(mean, var, gamma, beta, eps: float = BN_EPS, *,
     return s, beta - mean * s
 
 
+def bn_affine(x, s, t):
+    """``x * s + t`` with ``s`` and ``t`` (f32) cast to ``x``'s dtype
+    first, as the JAX op does (``ops/nn.py:201-214``): on a bf16 ``x`` the
+    product and the sum are each rounded to bf16."""
+    return x * s.to(x.dtype) + t.to(x.dtype)
+
+
 def batch_norm_infer(x, mean, var, gamma, beta, eps: float = BN_EPS):
-    """Eval-mode batch norm with running statistics: ``x * s + t``.
-    Broadcasts over leading dims (NHWC and ``[B, F]``)."""
+    """Eval-mode batch norm with running statistics: ``x * s + t``, in
+    ``x``'s dtype (``bn_affine``).  Broadcasts over leading dims (NHWC and
+    ``[B, F]``)."""
     s, t = bn_scale_offset(mean, var, gamma, beta, eps)
-    return x * s + t
+    return bn_affine(x, s, t)
 
 
 def linear(x, weight, bias=None, *, compute_dtype=None):

@@ -15,12 +15,15 @@ and with its JSON keys:
   net (``mid_argmax_flips``, ``mid_max_logit_diff``);
 - ``l1``, ``e2e``, ``all``: the graphs' frames/s (``<graph>_fps``).
 
-The JAX script's "shipped graph" is XLA's; here it is the port's shipped
+The JAX script's "shipped graph" is XLA's, and so is the port's shipped
 net at that rung: ``l1_xla`` and ``e2e_xla`` run the ``bfloat16_full``
-net (whose layers are the same K1 and K3 instances), ``e2e_chain`` the
-``uint8_chain`` net (plain PyTorch).  Layers 2 and 3 of ``e2e_u8mid``
-take the ``bfloat16_full`` net's kernel arguments: the same weights as
-the ``uint8_chain`` net's.
+net (the ``bf16_xla`` kernel instances, XLA's numerics), ``e2e_chain``
+the ``uint8_chain`` net (plain PyTorch).  ``l1_fused`` is K1 and
+``rest_fused`` K4, at the Pallas kernels' numerics; layers 2 and 3 of
+``e2e_u8mid`` run K3 (``bf16_out``) on the ``bfloat16_full`` net's
+weights, the same as the ``uint8_chain`` net's.  ``e2e_k3`` (K1 -> K3 ->
+K3 -> head, no stage times it) is the all-Pallas chain that K4's
+``e2e_allfused`` must equal exactly.
 
 Timing: a graph's loop runs ``steps`` calls on the frames plus the step
 index (uint8, wrapping), summing each output into one scalar that is
@@ -56,6 +59,7 @@ from cut_detection_tpu_torch.ops.kernels.conv_block import (
 )
 from cut_detection_tpu_torch.ops.nn import (
     adaptive_avg_pool,
+    bn_scale_offset,
     flatten_nchw_order,
 )
 
@@ -84,6 +88,16 @@ def seeded_frames(batch: int, device) -> torch.Tensor:
                                          dtype=np.uint8)).to(device)
 
 
+def pallas_args(layer):
+    """A block's arguments for the Pallas-numerics instances (K1, K3): the
+    bf16 kernel and the ``gamma / sqrt(var + eps)`` BN affine."""
+    bn = layer.bn
+    scale, offset = bn_scale_offset(bn.running_mean, bn.running_var,
+                                    bn.weight, bn.bias, rsqrt=False)
+    return (layer.hwio().contiguous().to(torch.bfloat16), layer.conv.bias,
+            scale, offset)
+
+
 def build_graphs(device) -> dict:
     """The benchmark's graphs, each frames (uint8 [B, 144, 256, 3]) ->
     activations or logits, on ``device``."""
@@ -93,8 +107,8 @@ def build_graphs(device) -> dict:
     chain = _folded(load_default_net(device, "uint8_chain")[0])
     u8_layer1 = _folded(load_default_net(device, "uint8_pool")[0]) \
         .conv.conv_layers[0]
-    k1_args = layers[0].kernel_args()
-    k3_args = [layer.kernel_args() for layer in layers[1:]]
+    k1_args = pallas_args(layers[0])
+    k3_args = [pallas_args(layer) for layer in layers[1:]]
 
     def head(acts):
         return net.linear(flatten_nchw_order(adaptive_avg_pool(
@@ -106,6 +120,12 @@ def build_graphs(device) -> dict:
 
     def l1_fused(frames):
         return conv1_block(frames, *k1_args, compute_dtype="bfloat16_full")
+
+    def k3_chain(acts):
+        for args in k3_args:
+            acts = conv_block(acts, *args, compute_dtype="bfloat16_full",
+                              out_dtype=torch.bfloat16)
+        return head(acts)
 
     def rest(l1):
         acts = l1
@@ -124,11 +144,7 @@ def build_graphs(device) -> dict:
         return head(acts)
 
     def e2e_u8mid(frames):
-        acts = u8_layer1(frames)
-        for args in k3_args:
-            acts = conv_block(acts, *args, compute_dtype="bfloat16_full",
-                              out_dtype=torch.bfloat16)
-        return head(acts)
+        return k3_chain(u8_layer1(frames))
 
     return {
         "l1_fused": l1_fused,
@@ -136,6 +152,7 @@ def build_graphs(device) -> dict:
         "e2e_fused": lambda v: rest(l1_fused(v)),
         "e2e_xla": lambda v: rest(l1_xla(v)),
         "e2e_allfused": lambda v: rest_fused(l1_fused(v)),
+        "e2e_k3": lambda v: k3_chain(l1_fused(v)),
         "e2e_u8mid": e2e_u8mid,
         "e2e_chain": chain,
     }

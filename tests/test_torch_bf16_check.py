@@ -15,6 +15,12 @@ uint8 frames; a 48-channel block on bf16 activations at 48x85):
 Both wrong ones stay within the one-ulp bound on every element, which
 alone would pass them; the cap on crossings (0.1% of the elements)
 fails them.
+
+The XLA-numerics instances (``conv1_block[bf16_xla]``,
+``conv_block[bf16_xla]`` and ``[bf16_xla_f32]``) are held by
+``xla_check`` the same way: their recipe in another summation order
+passes, and the recipe with its bf16 roundings left out or made toward
+zero fails.
 """
 
 import numpy as np
@@ -31,6 +37,7 @@ from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block_plain
 from cut_detection_tpu_torch.ops.kernels.tolerance import (
     MAX_CROSSING_SHARE,
     bf16_check,
+    xla_check,
 )
 from cut_detection_tpu_torch.ops.nn import bf16_round, bn_scale_offset
 
@@ -113,4 +120,76 @@ def test_wrong_rounding_fails_by_its_crossings(case, rounding):
     assert not ok
     # Within the one-ulp bound everywhere: the share alone fails it.
     assert worst <= 1.001
+    assert crossings > 50 * MAX_CROSSING_SHARE * want.numel()
+
+
+def _xla_stand_in(x, kernel, bias, scale, offset, rounding, out_dtype):
+    """XLA's block recipe with its conv summed in float64 and every bf16
+    rounding done by ``rounding``: the accumulator, the bias sum, the BN
+    product and (with a bf16 output) the BN sum."""
+    r = ROUNDINGS[rounding]
+    acc = F.conv2d(x.double().permute(0, 3, 1, 2),
+                   kernel.double().permute(3, 2, 0, 1),
+                   padding=1).float().permute(0, 2, 3, 1)
+    z = torch.relu(r(r(acc) + r(bias.float())))
+    m = F.max_pool2d(z.permute(0, 3, 1, 2), 3).permute(0, 2, 3, 1)
+    y = r(m * r(scale)) + r(offset)
+    return r(y).to(torch.bfloat16) if out_dtype == torch.bfloat16 else y
+
+
+def _xla_layer1():
+    """The prod net's folded layer 1 at bfloat16_full (its ``gamma *
+    rsqrt`` BN), XLA's numerics: (plain output, kernel arguments)."""
+    net, _ = load_default_net("cpu", "bfloat16_full")
+    _, bias, scale, offset = net.conv.conv_layers[0].kernel_args()
+    kernel = (fold_preprocess(net.state_dict())
+              ["conv.conv_layers.0.conv.weight"].permute(2, 3, 1, 0)
+              .contiguous().to(torch.bfloat16))
+    x = T(np.random.default_rng(0).integers(0, 256, (2, 144, 256, 3),
+                                            dtype=np.uint8))
+    args = (x, kernel, bias, scale, offset)
+    return conv1_block_plain(*args, compute_dtype="bfloat16_full",
+                             numerics="xla"), args
+
+
+def _xla_block(out_dtype):
+    def build():
+        _, args = _block()
+        return conv_block_plain(*args, compute_dtype="bfloat16_full",
+                                out_dtype=out_dtype, numerics="xla"), args
+    return build
+
+
+XLA_CASES = {"conv1_block[bf16_xla]": (_xla_layer1, torch.bfloat16),
+             "conv_block[bf16_xla]": (_xla_block(torch.bfloat16),
+                                      torch.bfloat16),
+             "conv_block[bf16_xla_f32]": (_xla_block(torch.float32),
+                                          torch.float32)}
+
+
+@pytest.fixture(scope="module", params=sorted(XLA_CASES))
+def xla_case(request):
+    build, out_dtype = XLA_CASES[request.param]
+    want, args = build()
+    return want, args, out_dtype
+
+
+def _xla_check(got, want, args):
+    _, _, bias, scale, offset = args
+    return xla_check(got, want, offset, scale, bias)
+
+
+def test_xla_numerics_in_another_order_pass(xla_case):
+    want, args, out_dtype = xla_case
+    got = _xla_stand_in(*args, "nearest", out_dtype)
+    ok, worst, crossings = _xla_check(got, want, args)
+    assert ok, (worst, crossings)
+
+
+@pytest.mark.parametrize("rounding", ["none", "toward_zero"])
+def test_xla_wrong_rounding_fails_by_its_crossings(xla_case, rounding):
+    want, args, out_dtype = xla_case
+    got = _xla_stand_in(*args, rounding, out_dtype)
+    ok, _, crossings = _xla_check(got, want, args)
+    assert not ok
     assert crossings > 50 * MAX_CROSSING_SHARE * want.numel()

@@ -14,6 +14,13 @@ versions on the card by ``tests/test_torch_cuda.py``.
 - ``apply_conv_block(compute_dtype="bfloat16")`` against the
   ``bf16_operands`` instance at 1e-5: the same bf16-rounded operands and
   f32 activations, f32 summation order only.
+- ``apply_conv_block(compute_dtype="bfloat16_full")`` (XLA's rung) against
+  the ``bf16_xla`` instances of ``conv1_block`` and ``conv_block``, per
+  layer of the prod net on the JAX layer's own input, and on seeded
+  blocks, by ``tolerance.xla_check``; 0 crossings measured on the prod
+  layers, so the outputs are bit-identical there.  The ``bf16_xla_f32``
+  instance (the last block's, f32 out) against the same block with its
+  BN sum read before XLA's last rounding.
 
 Where the two f32 sums of a bf16 instance put a post-ReLU activation on
 two sides of a bf16 rounding boundary, the outputs may differ by that
@@ -39,6 +46,9 @@ from cut_detection_tpu_torch.ops.kernels.conv1_block import (
     conv1_block,
     conv1_block_plain,
 )
+from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+    instance as conv1_instance,
+)
 from cut_detection_tpu_torch.ops.kernels.conv_block import (
     CM_INSTANCES,
     INSTANCES,
@@ -46,6 +56,7 @@ from cut_detection_tpu_torch.ops.kernels.conv_block import (
     conv_block_plain,
     instance,
 )
+from cut_detection_tpu_torch.ops.kernels.tolerance import xla_check
 from cut_detection_tpu_torch.ops.nn import bn_scale_offset
 
 T = torch.from_numpy
@@ -200,21 +211,128 @@ def test_conv_block_bf16_operands_matches_apply_conv_block(b, h, w, cin):
 
 
 def test_instances_by_compute_dtype():
-    """Each (compute_dtype, out_dtype) names one instance; others raise.
-    The launch counts hold those and K4's channel-major instances."""
-    names = [instance(*key)[0] for key in INSTANCES]
-    assert names == ["f32", "bf16_operands", "bf16_out"]
+    """Each (compute_dtype, out_dtype, numerics) names one instance, the
+    numerics counting only at ``bfloat16_full``; others raise.  The launch
+    counts hold those and K4's channel-major instances."""
+    names = [instance(c, o, n or "pallas")[0] for c, o, n in INSTANCES]
+    assert names == ["f32", "bf16_operands", "bf16_xla", "bf16_xla_f32",
+                     "bf16_out"]
+    assert instance(None, numerics="xla")[0] == "f32"
     assert sorted(conv_block.instance_launches) == sorted(
         names + list(CM_INSTANCES.values()))
-    assert sorted(conv1_block.instance_launches) == ["bf16", "f32"]
+    assert sorted(conv1_block.instance_launches) == ["bf16", "bf16_xla",
+                                                     "f32"]
+    assert conv1_instance("bfloat16_full", "xla")[0] == "bf16_xla"
     for key in (("bfloat16", torch.bfloat16),
                 ("bfloat16_full", torch.float32)):
         with pytest.raises(ValueError, match="no instance"):
             instance(*key)
+    with pytest.raises(ValueError, match="numerics"):
+        instance("bfloat16_full", torch.bfloat16, "tpu")
     x = torch.zeros(1, 6, 6, 3, dtype=torch.uint8)
     with pytest.raises(ValueError, match="no instance"):
         conv1_block(x, torch.zeros(3, 3, 3, 4), *torch.zeros(3, 4),
                     compute_dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
+def prod_xla_layers():
+    """The prod net's folded layers at ``bfloat16_full`` and each JAX
+    layer's input and output (``apply_conv_block``, XLA's rung) on seeded
+    frames: [(params, state, input, output)] as numpy, f32."""
+    net, _ = jax_default(precision="bfloat16_full")
+    fb = jax_fold_preprocess(jax.device_get(net.bundle))
+    x = np.random.default_rng(11).integers(0, 256, (4, 144, 256, 3),
+                                           dtype=np.uint8)
+    a = jnp.asarray(x, jnp.float32)
+    out = []
+    for p, s in zip(fb["conv"]["params"], fb["conv"]["state"]):
+        y, _ = apply_conv_block(p, s, a, train=False,
+                                compute_dtype="bfloat16_full")
+        out.append(({k: np.array(v) for k, v in p.items()},
+                    {k: np.array(v) for k, v in s.items()},
+                    np.array(a.astype(jnp.float32)),
+                    np.array(y.astype(jnp.float32))))
+        a = y
+    return out
+
+
+def _xla_args(p, s):
+    scale, offset = _affine(p, s, rsqrt=True)
+    return T(p["kernel"]).to(torch.bfloat16), T(p["bias"]), scale, offset
+
+
+def _assert_xla_block(got, want, args):
+    """``tolerance.xla_check`` of ``got`` against the JAX block's
+    ``want`` with the block's arguments (kernel, bias, scale, offset);
+    returns the crossings it counts."""
+    _, bias, scale, offset = args
+    ok, worst, crossings = xla_check(got, T(want).to(got.dtype), offset,
+                                     scale, bias)
+    assert ok, (worst, crossings)
+    return crossings
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_bf16_xla_matches_jax_rung_per_prod_layer(prod_xla_layers, layer):
+    """The folded layer 1 (``conv1_block[bf16_xla]`` on the raw frames)
+    and layers 2 and 3 (``conv_block[bf16_xla]`` on the JAX layer's bf16
+    input) against ``apply_conv_block(compute_dtype="bfloat16_full")`` by
+    ``xla_check``: 0 crossings, so bit-identical, on these frames."""
+    p, s, x, want = prod_xla_layers[layer]
+    args = _xla_args(p, s)
+    if layer == 0:
+        got = conv1_block(T(x.astype(np.uint8)), *args,
+                          compute_dtype="bfloat16_full", numerics="xla")
+    else:
+        got = conv_block(T(x).to(torch.bfloat16), *args,
+                         compute_dtype="bfloat16_full",
+                         out_dtype=torch.bfloat16, numerics="xla")
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _assert_xla_block(got, want, args) == 0
+
+
+def test_bf16_xla_unfolded_layer1_matches_jax_rung():
+    """The unfolded layer 1 (Cin = 3, the ``--pallas-preprocess`` path) on
+    normalized frames: ``conv_block[bf16_xla]`` against the JAX rung's
+    block, 0 crossings measured."""
+    net, _ = jax_default(precision="bfloat16_full")
+    bundle = jax.device_get(net.bundle)
+    p = {k: np.array(v) for k, v in bundle["conv"]["params"][0].items()}
+    s = {k: np.array(v) for k, v in bundle["conv"]["state"][0].items()}
+    x = np.random.default_rng(12).uniform(0, 1, (2, 144, 256, 3)) \
+        .astype(np.float32)
+    want, _ = apply_conv_block(p, s, jnp.asarray(x), train=False,
+                               compute_dtype="bfloat16_full")
+    args = _xla_args(p, s)
+    got = conv_block(T(x).to(torch.bfloat16), *args,
+                     compute_dtype="bfloat16_full", out_dtype=torch.bfloat16,
+                     numerics="xla")
+    assert _assert_xla_block(got, np.array(want.astype(jnp.float32)),
+                             args) == 0
+
+
+@pytest.mark.parametrize("b,h,w,cin", [(2, 48, 85, 48), (2, 16, 28, 48),
+                                       (1, 13, 20, 8), (2, 10, 9, 3)])
+def test_bf16_xla_matches_apply_conv_block(b, h, w, cin):
+    """Seeded blocks, H % 3 != 0 and Cin < 16 among them: the ``bf16_xla``
+    plain version against JAX's block by ``xla_check`` (at most 0.1% of
+    the elements crossed); the ``bf16_xla_f32`` output, rounded to bf16,
+    is the same block's."""
+    rng = np.random.default_rng(hash((b, h, w, cin)) % 2**31)
+    x = rng.normal(0, 1, (b, h, w, cin)).astype(np.float32)
+    p, s = _params(rng, cin, 48)
+    want, _ = apply_conv_block(p, s, jnp.asarray(x), train=False,
+                               compute_dtype="bfloat16_full")
+    want = np.array(want.astype(jnp.float32))
+    args = (T(x).to(torch.bfloat16), *_xla_args(p, s))
+    got = conv_block_plain(*args, compute_dtype="bfloat16_full",
+                           out_dtype=torch.bfloat16, numerics="xla")
+    _assert_xla_block(got, want, args[1:])
+    got32 = conv_block_plain(*args, compute_dtype="bfloat16_full",
+                             out_dtype=torch.float32, numerics="xla")
+    assert got32.dtype == torch.float32
+    assert torch.equal(got32.to(torch.bfloat16), got)
 
 
 def test_bf16_wrappers_on_cpu_take_the_plain_version(prod_layer1):
@@ -233,16 +351,16 @@ def test_bf16_wrappers_on_cpu_take_the_plain_version(prod_layer1):
         got, conv1_block_plain(x, k, T(p["bias"]), scale, offset,
                                compute_dtype="bfloat16_full"), rtol=0, atol=0)
     xf = T(rng.normal(0, 1, (1, 9, 12, 3)).astype(np.float32))
-    for compute_dtype, out_dtype in INSTANCES:
+    for compute_dtype, out_dtype, numerics in INSTANCES:
         xk = xf.to(torch.bfloat16) if compute_dtype == "bfloat16_full" else xf
         kk = k if compute_dtype == "bfloat16_full" else k.float()
         args = (xk, kk, T(p["bias"]), scale, offset)
-        got = conv_block(*args, compute_dtype=compute_dtype,
-                         out_dtype=out_dtype)
+        kw = {"compute_dtype": compute_dtype, "out_dtype": out_dtype,
+              "numerics": numerics or "pallas"}
+        got = conv_block(*args, **kw)
         assert got.dtype == out_dtype
-        torch.testing.assert_close(
-            got, conv_block_plain(*args, compute_dtype=compute_dtype,
-                                  out_dtype=out_dtype), rtol=0, atol=0)
+        torch.testing.assert_close(got, conv_block_plain(*args, **kw),
+                                   rtol=0, atol=0)
     assert (dict(conv1_block.instance_launches),
             dict(conv_block.instance_launches)) == before
     assert set(before[0].values()) | set(before[1].values()) == {0}

@@ -8,9 +8,10 @@ repository's ``conftest.py`` (which imports jax):
 
 Tolerances: 1e-4 for f32 block kernels and the ``bf16_operands``
 instance against their plain versions (f32 summation order only, on the
-same bf16-rounded operands); for the instances that round the post-ReLU
-activation to bf16 (K1, K3's ``bf16_out`` and K4's ``cm_bf16`` and
-``cm_f32``), ``tolerance.bf16_check``:
+same bf16-rounded operands); for the instances that round activations to
+bf16 (K1, K3's ``bf16_out``, K4's ``cm_bf16`` and ``cm_f32``),
+``tolerance.bf16_check`` (``xla_check``, the same rule for XLA's
+roundings, for the ``bf16_xla`` instances of both kernels):
 one bf16 ulp of the pooled activation, since summation order may move a
 value across a bf16 rounding boundary, plus one ulp of a bf16 output's
 own rounding, and such crossings on at most 0.1% of the elements; 1e-5
@@ -52,13 +53,18 @@ from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
     resize_normalize,
     resize_normalize_plain,
 )
-from cut_detection_tpu_torch.ops.kernels.tolerance import bf16_check
+from cut_detection_tpu_torch.ops.nn import bn_scale_offset
+from cut_detection_tpu_torch.ops.kernels.tolerance import (
+    bf16_check,
+    xla_check,
+)
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
 from cut_detection_tpu_torch.pipeline import batch_frames, classify_batches
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 T = torch.from_numpy
 QUANT_CONF_TOL = 2e-2  # chip_smoke.QUANT_CONF_TOL
+BENCH_XLA_TOL = 5e-2  # chip_smoke.BENCH_XLA_TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -73,10 +79,16 @@ def cuda_dev():
     return torch.device("cuda")
 
 
-def _layer1_args(dev, precision="float32"):
-    """The prod net's folded layer-1 kernel arguments at ``precision``."""
+def _layer1_args(dev, precision="float32", rsqrt=True):
+    """The prod net's folded layer-1 kernel arguments at ``precision``,
+    with the BN's ``gamma * rsqrt`` or (``rsqrt=False``) K1's ``gamma /
+    sqrt``."""
     net, _ = load_default_net(dev, precision)
-    _, bias, scale, offset = net.conv.conv_layers[0].kernel_args()
+    layer = net.conv.conv_layers[0]
+    bias = layer.conv.bias
+    scale, offset = bn_scale_offset(layer.bn.running_mean,
+                                    layer.bn.running_var, layer.bn.weight,
+                                    layer.bn.bias, rsqrt=rsqrt)
     kernel = (fold_preprocess(net.state_dict())
               ["conv.conv_layers.0.conv.weight"].permute(2, 3, 1, 0)
               .contiguous())
@@ -93,11 +105,13 @@ def _block_args(rng, dev, cin=48, cout=48):
     return [T(a).to(dev) for a in (k, bias, scale, offset)]
 
 
-def _assert_within_bf16_crossing(got, want, offset):
+def _assert_within_bf16_crossing(got, want, offset, xla=None):
     """``tolerance.bf16_check``: one bf16 ulp of the pooled activation m
     (y = m*s + t), plus one ulp of y where the output is bf16, on every
-    element, and more than 1e-5 apart on at most 0.1% of them."""
-    ok, worst, crossings = bf16_check(got, want, offset)
+    element, and more than 1e-5 apart on at most 0.1% of them; with
+    ``xla`` = (scale, bias), ``tolerance.xla_check``."""
+    ok, worst, crossings = (bf16_check(got, want, offset) if xla is None
+                            else xla_check(got, want, offset, *xla))
     assert ok, (f"worst err / one-ulp bound {worst}, {crossings} of "
                 f"{got.numel()} elements crossed")
 
@@ -117,11 +131,30 @@ def test_conv1_block_kernel(cuda_dev, h, w):
 
 
 @pytest.mark.parametrize("h,w", [(144, 256), (143, 256), (3, 3)])
-def test_conv1_block_bf16_kernel(cuda_dev, h, w):
-    """K1's instance, on the prod net's folded layer 1 at bfloat16_full."""
+def test_conv1_block_bf16_xla_kernel(cuda_dev, h, w):
+    """XLA's instance, on the prod net's folded layer 1 at bfloat16_full
+    with its kernel arguments (``gamma * rsqrt``)."""
     x = T(np.random.default_rng(h).integers(0, 256, (4, h, w, 3),
                                             dtype=np.uint8)).to(cuda_dev)
     args = (x, *_layer1_args(cuda_dev, "bfloat16_full"))
+    kw = {"compute_dtype": "bfloat16_full", "numerics": "xla"}
+    n = dict(conv1_block.instance_launches)
+    got = conv1_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert conv1_block.instance_launches == {
+        **n, "bf16_xla": n["bf16_xla"] + 1}
+    assert got.dtype == torch.bfloat16
+    _assert_within_bf16_crossing(got, conv1_block_plain(*args, **kw),
+                                 args[4], (args[3], args[2]))
+
+
+@pytest.mark.parametrize("h,w", [(144, 256), (143, 256), (3, 3)])
+def test_conv1_block_bf16_kernel(cuda_dev, h, w):
+    """K1's instance, on the prod net's folded layer 1 at bfloat16_full
+    (K1's ``gamma / sqrt`` BN)."""
+    x = T(np.random.default_rng(h).integers(0, 256, (4, h, w, 3),
+                                            dtype=np.uint8)).to(cuda_dev)
+    args = (x, *_layer1_args(cuda_dev, "bfloat16_full", rsqrt=False))
     n = dict(conv1_block.instance_launches)
     got = conv1_block(*args, compute_dtype="bfloat16_full")
     torch.cuda.synchronize()
@@ -132,27 +165,75 @@ def test_conv1_block_bf16_kernel(cuda_dev, h, w):
     _assert_within_bf16_crossing(got, want, args[-1])
 
 
-@pytest.mark.parametrize("h,w,cin", [(48, 85, 48), (16, 28, 48),
-                                     (10, 9, 8), (144, 256, 3)])
-@pytest.mark.parametrize("compute_dtype,out_dtype", list(INSTANCES))
-def test_conv_block_kernel(cuda_dev, h, w, cin, compute_dtype, out_dtype):
-    """Every instance, with one launch counted on its own name."""
-    rng = np.random.default_rng(h)
-    x = T(rng.normal(0, 1, (4, h, w, cin)).astype(np.float32)).to(cuda_dev)
-    k, bias, scale, offset = _block_args(rng, cuda_dev, cin=cin)
-    name, dtype = INSTANCES[(compute_dtype, out_dtype)]
+def _check_instance(key, b, h, w, cin, cout, dev):
+    """Instance ``key`` of ``conv_block`` against its plain version on a
+    seeded block, with one launch counted on its own name."""
+    compute_dtype, out_dtype, numerics = key
+    rng = np.random.default_rng(b * h * w + cin + cout)
+    x = T(rng.normal(0, 1, (b, h, w, cin)).astype(np.float32)).to(dev)
+    k, bias, scale, offset = _block_args(rng, dev, cin=cin, cout=cout)
+    name, dtype = INSTANCES[key]
     x, k = x.to(dtype), k.to(dtype)
     n = dict(conv_block.instance_launches)
-    kw = {"compute_dtype": compute_dtype, "out_dtype": out_dtype}
+    kw = {"compute_dtype": compute_dtype, "out_dtype": out_dtype,
+          "numerics": numerics or "pallas"}
     got = conv_block(x, k, bias, scale, offset, **kw)
     want = conv_block_plain(x, k, bias, scale, offset, **kw)
     torch.cuda.synchronize()
     assert conv_block.instance_launches == {**n, name: n[name] + 1}
     assert got.dtype == want.dtype == out_dtype
+    assert got.shape == (b, h // 3, (w - 3) // 3 + 1, cout)
     if compute_dtype == "bfloat16_full":
-        _assert_within_bf16_crossing(got, want, offset)
+        _assert_within_bf16_crossing(
+            got, want, offset, (scale, bias) if numerics == "xla" else None)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,w,cin", [(48, 85, 48), (16, 28, 48),
+                                     (10, 9, 8), (144, 256, 3)])
+@pytest.mark.parametrize("key", list(INSTANCES))
+def test_conv_block_kernel(cuda_dev, h, w, cin, key):
+    """Every instance at the main path's shapes and two small ones."""
+    _check_instance(key, 4, h, w, cin, 48, cuda_dev)
+
+
+# (B, H, W, Cin, Cout) the tiling must survive: batches of 1 and 133 (not
+# a multiple of the persistent grid), pooled widths that leave a partial
+# 7-window tile (W = 40, 22), H % 3 = 1 and 2, Cin = 3, 8, 48 and Cout =
+# 32, 48, 128 (two channel groups).
+TILING_SHAPES = [(1, 48, 85, 48, 32), (2, 16, 28, 48, 128),
+                 (133, 7, 22, 8, 48), (3, 11, 40, 48, 48),
+                 (2, 14, 40, 3, 128), (1, 8, 22, 3, 32)]
+
+
+@pytest.mark.parametrize("shape", TILING_SHAPES)
+@pytest.mark.parametrize("key", list(INSTANCES))
+def test_conv_block_kernel_tiling(cuda_dev, key, shape):
+    _check_instance(key, *shape, cuda_dev)
+
+
+@pytest.mark.parametrize("shape", [s for s in TILING_SHAPES if s[3] >= 8])
+@pytest.mark.parametrize("out_dtype", list(CM_INSTANCES))
+def test_fused_conv_block_kernel_tiling(cuda_dev, out_dtype, shape):
+    """K4's wrapper (channel-major in and out) on the tiling shapes."""
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(b + h + w + cout)
+    x = T(rng.normal(0, 1, (b, cin, h, w)).astype(np.float32)).to(cuda_dev)
+    k = T(rng.normal(0, 0.1, (3, 3, cin, cout)).astype(np.float32))
+    bn = [rng.normal(0, 0.1, cout), rng.normal(1, 0.1, cout),
+          rng.normal(0, 0.1, cout), rng.normal(0, 0.5, cout),
+          rng.uniform(0.5, 2, cout)]
+    args = [k.to(cuda_dev)] + [T(a.astype(np.float32)).to(cuda_dev)
+                               for a in bn]
+    kw = {"out_dtype": out_dtype, "nhwc_out": True, "channel_major_in": True}
+    got = fused_conv_block(x, *args, **kw)
+    want = fused_conv_block_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, h // 3, (w - 3) // 3 + 1, cout)
+    _, gamma, beta, mean, var = args[1:]
+    s = gamma / torch.sqrt(var + 1e-5)
+    _assert_within_bf16_crossing(got, want, beta - mean * s)
 
 
 @pytest.mark.parametrize("nhwc_out", [True, False])
@@ -254,10 +335,14 @@ def test_slice_on_card_matches_cpu(cuda_dev):
     np.testing.assert_allclose(conf, cpu_conf, rtol=0, atol=1e-4)
 
 
-# Launches per batch by instance: (conv1_block, conv_block) on the default
-# path and (resize_normalize, conv_block) on the --pallas-preprocess path.
-RUNG_INSTANCES = {"bfloat16": ("f32", "bf16_operands"),
-                  "bfloat16_full": ("bf16", "bf16_out")}
+# Launches per batch by instance of each rung's default path (conv1_block,
+# conv_block) and --pallas-preprocess path (conv_block; plus the resize
+# kernel).
+RUNG_LAUNCHES = {
+    "bfloat16": ({"f32": 1}, {"bf16_operands": 2}, {"bf16_operands": 3}),
+    "bfloat16_full": ({"bf16_xla": 1}, {"bf16_xla": 1, "bf16_xla_f32": 1},
+                      {"bf16_xla": 2, "bf16_xla_f32": 1}),
+}
 
 
 @pytest.mark.parametrize("pallas_preprocess", [False, True])
@@ -286,11 +371,14 @@ def test_bf16_slice_on_card_matches_cpu(cuda_dev, precision,
     k5 = resize_normalize.launches
     conf, pred, stats = run(cuda_dev)
     assert stats.batches == 3
-    first, mid = RUNG_INSTANCES[precision]
+    first, mids, fused_mids = RUNG_LAUNCHES[precision]
     want_c1 = dict(c1)
-    want_cb = {**cb, mid: cb[mid] + (9 if pallas_preprocess else 6)}
+    want_cb = dict(cb)
+    for inst, k in (fused_mids if pallas_preprocess else mids).items():
+        want_cb[inst] += 3 * k
     if not pallas_preprocess:
-        want_c1[first] += 3
+        for inst, k in first.items():
+            want_c1[inst] += 3 * k
     assert conv1_block.instance_launches == want_c1
     assert conv_block.instance_launches == want_cb
     assert resize_normalize.launches - k5 == (3 if pallas_preprocess else 0)
@@ -332,18 +420,50 @@ def test_quantized_slice_on_card_matches_cpu(cuda_dev, precision,
 
 def test_bench_block_stage_on_card(cuda_dev):
     """The bench entry point's block stage at batch 16: K1 -> K4 -> K4 ->
-    head holds the shipped net's classes, with K4 launched twice per call
-    of that graph."""
+    head equals K1 -> K3 -> K3 -> head and holds the shipped net's classes
+    (XLA's numerics) within ``chip_smoke.BENCH_XLA_TOL``, with K4
+    launched twice per call of that graph."""
     from cut_detection_tpu_torch.scripts import bench_fused_conv1 as bench
 
+    graphs = bench.build_graphs(cuda_dev)
+    x = bench.seeded_frames(16, cuda_dev)
+    with torch.inference_mode():
+        assert torch.equal(graphs["e2e_allfused"](x), graphs["e2e_k3"](x))
     n = dict(conv_block.instance_launches)
     out = bench.run(batch=16, steps=1, stage="block", device=cuda_dev)
     calls = 2 + 3 * 1
     assert conv_block.instance_launches["cm_bf16"] - n["cm_bf16"] == \
         2 * calls
     assert out["full_argmax_flips"] == 0
-    assert out["full_max_logit_diff"] < 2e-2
+    assert out["full_max_logit_diff"] < BENCH_XLA_TOL
     assert out["e2e_allfused_fps"] > 0
+
+
+def test_bfloat16_full_step_launches_only_xla_instances(cuda_dev):
+    """One ``bfloat16_full`` step at the prod shape (128 frames of
+    144x256) launches XLA's instances and no other kernel: layer 1's
+    ``bf16_xla``, layer 2's ``bf16_xla`` and layer 3's ``bf16_xla_f32``,
+    once each."""
+    from cut_detection_tpu_torch.pipeline import make_classify_step
+
+    net, _ = load_default_net(cuda_dev, "bfloat16_full")
+    step = make_classify_step(net)
+    frames = T(np.random.default_rng(8).integers(
+        0, 256, (128, 144, 256, 3), dtype=np.uint8)).to(cuda_dev)
+    step(frames)  # build and freeze outside the count
+    torch.cuda.synchronize()
+    before = (dict(conv1_block.instance_launches),
+              dict(conv_block.instance_launches), resize_normalize.launches)
+    step(frames)
+    torch.cuda.synchronize()
+    c1 = {k: v - before[0][k]
+          for k, v in conv1_block.instance_launches.items()}
+    cb = {k: v - before[1][k]
+          for k, v in conv_block.instance_launches.items()}
+    assert {k: v for k, v in c1.items() if v} == {"bf16_xla": 1}
+    assert {k: v for k, v in cb.items() if v} == {"bf16_xla": 1,
+                                                  "bf16_xla_f32": 1}
+    assert resize_normalize.launches == before[2]
 
 
 @pytest.mark.parametrize("pallas_preprocess", [False, True])

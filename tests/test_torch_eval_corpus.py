@@ -10,11 +10,10 @@ the CPU, held to the JAX package's own gates
 - ``corpus_nat``: frame accuracy 1.0 at ``bfloat16_full``,
   ``uint8_pool`` and ``uint8_chain``, the default gate at ``bfloat16``.
 
-``bfloat16`` has the JAX rung's numerics up to summation order, so on
-``corpus_adv``, the clip with the smallest margins, its CSV is also the
-JAX CLI's byte for byte.  ``bfloat16_full`` follows the kernels' numerics
-rather than XLA's, and its CSV there differs from the JAX rung's (port
-frame accuracy 1.0, JAX 0.9848, when this was written).
+``bfloat16`` and ``bfloat16_full`` have the JAX rungs' numerics up to
+summation order (``bfloat16_full`` XLA's, as the compiled JAX step
+computes it), so on ``corpus_adv``, the clip with the smallest margins,
+their CSVs are also the JAX CLI's byte for byte.
 """
 
 import os
@@ -57,10 +56,11 @@ def test_bf16_rungs_hold_the_corpus_gates(tmp_path, precision, name,
         assert res["frame_accuracy"] == 1.0, res
 
 
-def test_bfloat16_matches_jax_csv_on_adversarial_clip(tmp_path):
-    ours = _segment(tmp_path, "corpus_adv", "bfloat16")
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_full"])
+def test_bfloat16_matches_jax_csv_on_adversarial_clip(tmp_path, precision):
+    ours = _segment(tmp_path, "corpus_adv", precision)
     theirs = str(tmp_path / "jax.csv")
     jax_segment(os.path.join(CORPUS, "corpus_adv.mp4"), theirs,
-                print_every=0, precision="bfloat16", transfer="bgr")
+                print_every=0, precision=precision, transfer="bgr")
     with open(ours, "rb") as f, open(theirs, "rb") as g:
         assert f.read() == g.read()
