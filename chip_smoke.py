@@ -9,14 +9,17 @@ Phases, each of which raises on failure:
 2. build   — compiles every kernel from ``cut_detection_tpu_torch/csrc``
              with nvcc and prints the build time and ptxas report (no
              spills allowed), and the HGMMA (wgmma) instructions of each
-             tensor-core kernel in the library's SASS (none fails);
+             tensor-core kernel in the library's SASS (none fails), the
+             two layer-1 ones (``conv1_block``'s bf16 instances) named;
 3. kernels — each kernel instance against its plain PyTorch version on
              the card at the main path's shapes (batch 128, seeded
              inputs), with the max error, the tolerance (for the
              instances that round activations to bf16, the worst error
              over its one-ulp bound and the count of one-ulp crossings,
              at most 0.1% of the elements), the median times of the
-             kernel, its plain version and the library's convolution
+             kernel (one call between two CUDA events, so with the
+             host's time to launch it; and a call's share of 50 enqueued
+             back to back), its plain version and the library's convolution
              (cuDNN, the block's conv alone at the instance's operand
              type), and the least time the card could take (bytes or
              operations, from this run's shapes): layer 1 (f32, K1's
@@ -113,6 +116,27 @@ BENCH_STEPS = 3         # calls per timed loop of the bench_fused phase
 # H100 SXM peaks (NVIDIA's data sheet, dense): the least time of a kernel
 # is the larger of its bytes over the memory rate and its operations over
 # the rate of their type.
+LAYER1_MMA_KERNELS = 2  # conv1_block's bf16 and bf16_xla
+# The earlier layer-1 design's readings (one block per pooled row and
+# frame, f32 FMAs for every instance, no tensor cores), with the
+# mid-stack blocks and the steps of that tree, from this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; printed beside this run's.
+EARLIER_MS = {"conv1_block[f32]": 0.4425, "conv1_block[bf16]": 0.4492,
+              "conv1_block[bf16_xla]": 0.4462, "conv_block[f32]": 0.6154,
+              "conv_block[bf16_operands]": 0.2252,
+              "conv_block[bf16_xla]": 0.0992,
+              "conv_block[bf16_xla_f32]": 0.0980,
+              "conv_block[bf16_out]": 0.0978, "conv_block[cm_bf16]": 0.3728,
+              "conv_block[cm_f32]": 0.3102, "resize_normalize": 0.0861}
+EARLIER_STEP_MS = {"float32": 1.3493, "bfloat16": 0.9449,
+                   "bfloat16_full": 0.7908, "uint8_pool": 9.4468,
+                   "uint8_chain": 9.0933, "host": 1.3342}
+EARLIER_FPS = {"loop": 39875.9, "float32": 31629.0, "bfloat16": 32075.7,
+               "bfloat16_full": 32727.7, "uint8_pool": 11765.2,
+               "uint8_chain": 12257.4, "l1_fused": 218766.5,
+               "l1_xla": 205233.5, "e2e_fused": 158487.0,
+               "e2e_xla": 151183.0, "e2e_allfused": 109213.0,
+               "e2e_u8mid": 17162.4, "e2e_chain": 13970.0}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 SRC_HW = (720, 1280)    # source frames of the preprocess paths
@@ -138,6 +162,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def stream_ms(fn, launches: int = 50) -> float:
+    """Milliseconds per call of ``fn()`` over ``launches`` calls enqueued
+    back to back between two CUDA events: the card's own time per call
+    once the host stays ahead of it (``cuda_ms``, one call between its
+    events, also counts the host's time to launch it)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def phase_device():
@@ -185,11 +226,21 @@ def phase_build():
             hgmma[name] = 0
         elif name is not None and "HGMMA" in line:
             hgmma[name] += 1
-    mma = {n: c for n, c in hgmma.items() if "conv_block_mma" in n}
+    mma = {n: c for n, c in hgmma.items() if "block_mma" in n}
     log(f"build: {len(mma)} tensor-core kernels, HGMMA instructions "
         f"{sorted(set(mma.values()))} each ({sum(mma.values())} in all)")
     if not mma or 0 in mma.values():
         raise AssertionError("a tensor-core kernel issues no HGMMA")
+    # Layer 1's (conv1_block_mma): the bf16 and bf16_xla instances.
+    layer1 = {n: c for n, c in mma.items() if "conv1_block_mma" in n}
+    for n, c in sorted(layer1.items()):
+        epi = {"1": "bf16", "2": "bf16_xla"}.get(
+            (re.search(r"EpilogueE(\d)", n) or [None, "?"])[1], "?")
+        log(f"build: layer-1 tensor-core kernel conv1_block[{epi}]: {c} "
+            "HGMMA")
+    if len(layer1) != LAYER1_MMA_KERNELS:
+        raise AssertionError(f"{len(layer1)} layer-1 tensor-core kernels in "
+                             f"the library, expected {LAYER1_MMA_KERNELS}")
 
 
 def _bn(rng, cout):
@@ -260,10 +311,12 @@ def phase_kernels(dev):
         return (by_ops, "operations") if by_ops >= by_bytes \
             else (by_bytes, "bytes")
 
-    def record(name, shape, err, tol, ok, ms, plain_ms, library_ms, bnd):
+    def record(name, shape, err, tol, ok, ms, plain_ms, library_ms, bnd,
+               streamed):
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name} {shape}: max_abs_err {err:.3e} ({tol}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} "
+            f"kernel {ms:.4f} ms ({streamed:.4f} ms a call streamed) "
+            f"plain {plain_ms:.4f} ms library {lib} "
             f"bound {bnd[0]:.4f} ms ({bnd[1]}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} at {shape} disagrees with its "
@@ -305,7 +358,7 @@ def phase_kernels(dev):
         return record(name, shape, err, tol, ok, cuda_ms(fn),
                       cuda_ms(plain_fn),
                       None if library_fn is None else cuda_ms(library_fn),
-                      bound_of(got))
+                      bound_of(got), stream_ms(fn))
 
     # Layer 1's instances on the prod net's folded layer: f32, K1's
     # (Pallas numerics, its gamma / sqrt BN) and XLA's (gamma * rsqrt).
@@ -414,7 +467,11 @@ def phase_kernels(dev):
         "resize_normalize", (BATCH, *SRC_HW, 3), err, f"tol {K5_TOL:.0e}",
         err <= K5_TOL, cuda_ms(lambda: resize_normalize(raw, *MODEL_HW)),
         cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)), None,
-        (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"))
+        (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+        stream_ms(lambda: resize_normalize(raw, *MODEL_HW)))
+    for name, row in results.items():
+        log(f"kernels: {name} at the main path's shape {row['ms']:.4f} ms "
+            f"(earlier {EARLIER_MS[name]})")
     log(f"kernels: launches so far {read_launches()} (comparisons and "
         "timing only)")
     return results
@@ -610,10 +667,11 @@ def phase_precision(dev, frames, workdir):
         loop()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         log(f"precision: {precision}, step on a resident batch of {BATCH} "
-            f"{cuda_ms(lambda: step(resident)):.4f} ms (CUDA events); loop "
-            f"of {reps} batches from host memory "
-            f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s, "
-            f"{wall_ms / reps:.4f} ms per batch")
+            f"{cuda_ms(lambda: step(resident)):.4f} ms (CUDA events; "
+            f"earlier {EARLIER_STEP_MS[precision]}); loop of {reps} batches "
+            f"from host memory {1e3 * reps * BATCH / wall_ms:.1f} frames/s "
+            f"(earlier {EARLIER_FPS[precision]}), {wall_ms / reps:.4f} ms "
+            "per batch")
         if precision in QUANTIZED:
             trace_loop(f"precision {precision}", loop, reps)
     return launches
@@ -698,7 +756,8 @@ def phase_host(dev, frames):
     batch_ms = wall_ms / reps
     log(f"host: slice loop, {reps} batches of {BATCH} from host memory: "
         f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s end to end (steady "
-        f"{stats.steady_frames_per_sec:.1f}), {batch_ms:.4f} ms per batch")
+        f"{stats.steady_frames_per_sec:.1f}; earlier {EARLIER_FPS['loop']}), "
+        f"{batch_ms:.4f} ms per batch")
     pieces = (
         ("np.stack of the batch's frames (batch_frames)",
          host_ms(lambda: np.stack(listed))),
@@ -706,8 +765,8 @@ def phase_host(dev, frames):
          host_ms(lambda: torch.from_numpy(batch).to(dev))),
         ("upload from pinned memory (not used yet)",
          host_ms(lambda: pinned.to(dev, non_blocking=True))),
-        ("device step on a resident batch (CUDA events)",
-         cuda_ms(lambda: step(resident))),
+        ("device step on a resident batch (CUDA events; earlier "
+         f"{EARLIER_STEP_MS['host']} ms)", cuda_ms(lambda: step(resident))),
     )
     for name, ms in pieces:
         log(f"host:   {name}: {ms:.4f} ms alone, "
@@ -1033,6 +1092,9 @@ def phase_bench(dev):
     log(f"bench_fused: {json.dumps(res)}")
     res = bench.run(BATCH, BENCH_STEPS, "all", dev)
     log(f"bench_fused: {json.dumps(res)}")
+    log("bench_fused: frames/s against the earlier layer 1: " + ", ".join(
+        f"{g} {res[g + '_fps']:.1f} (earlier {fps})"
+        for g, fps in EARLIER_FPS.items() if g + "_fps" in res))
     if res["argmax_flips"] != 0 or res["full_argmax_flips"] != 0:
         raise AssertionError(f"bench_fused all: class flips {res}")
     return {inst: launches[inst] + mid[inst] for inst in launches}
@@ -1102,11 +1164,11 @@ def stop_children() -> None:
 # gives its launches, source, the Pallas kernel it replaces).
 KERNEL_ROWS = (
     ("conv1_block[f32]", "float32", "cut_detection_tpu_torch/csrc/"
-     "conv1_block.cu", "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
+     "conv_block.cu", "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
     ("conv1_block[bf16]", "bench_fused", "cut_detection_tpu_torch/csrc/"
-     "conv1_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
+     "conv_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
     ("conv1_block[bf16_xla]", "bfloat16_full", "cut_detection_tpu_torch/"
-     "csrc/conv1_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
+     "csrc/conv_block.cu", "cut_detection_tpu/ops/pallas/fused_conv1.py:174"),
     ("conv_block[f32]", "float32", "cut_detection_tpu_torch/csrc/"
      "conv_block.cu", "cut_detection_tpu/ops/pallas/fused_block_pm.py:112"),
     ("conv_block[bf16_operands]", "bfloat16", "cut_detection_tpu_torch/"

@@ -1,13 +1,17 @@
-// Mid-stack CNN block, fused: conv3x3 (zero pad 1) + bias -> ReLU ->
-// maxpool 3x3 stride 3 (floor) -> eval-BN affine.
+// CNN block, fused: conv3x3 (zero pad 1) + bias -> ReLU -> maxpool 3x3
+// stride 3 (floor) -> eval-BN affine, for every layer of the net.
 //
-// Replaces two Pallas kernels: fused_conv_block_pm
-// (cut_detection_tpu/ops/pallas/fused_block_pm.py, NHWC) and
+// Replaces four Pallas kernels: fused_conv_block_pm
+// (cut_detection_tpu/ops/pallas/fused_block_pm.py, NHWC, K3) and
 // fused_conv_block (cut_detection_tpu/ops/pallas/fused_conv_block.py,
-// channel-major).  One source, templated on the types of the input, the
-// weights and the output, on the epilogue (common.cuh: what is rounded to
-// bf16 after the conv, and the BN's form) and on the layouts of the input
-// and the output: NHWC, or channel-major [B, C, H, W].  Instances:
+// channel-major, K4) at the mid-stack layers; conv1_pool_fused
+// (cut_detection_tpu/ops/pallas/conv1_kernel.py, K2) and fused_conv1_pool
+// (cut_detection_tpu/ops/pallas/fused_conv1.py, K1) at layer 1, from raw
+// uint8 BGR and the preprocess-folded kernel.  One source, templated on
+// the types of the input, the weights and the output, on the epilogue
+// (common.cuh: what is rounded to bf16 after the conv, and the BN's form)
+// and on the layouts of the input and the output: NHWC, or channel-major
+// [B, C, H, W].  Instances (cutdet_conv_block_*):
 //   f32            f32 operands and accumulation on the CUDA cores — the
 //                  float32 path (layers 2 and 3 of the prod net);
 //   bf16_operands  f32 input and weights rounded to bf16 as they are
@@ -19,6 +23,15 @@
 //                  rounded to bf16 before the pool, f32 BN, bf16 out;
 //   cm_bf16        fused_conv_block's numerics (bf16_out's) with
 //   cm_f32         channel-major input and output, bf16 or f32 out.
+// and at layer 1, uint8 in (cutdet_conv1_block*; uint8 is exact in f32
+// and in bf16, so widening it rounds nothing):
+//   f32 (U8F32)    K2: f32 weights and accumulation, on the CUDA cores —
+//                  layer 1 of float32, and of bfloat16 on bf16-rounded
+//                  weights (that rung's exact numerics);
+//   bf16 (U8Bf16)  K1's numerics: bf16 weights, f32 accumulation,
+//                  relu(acc + bias) rounded to bf16, f32 BN, bf16 out —
+//                  the bench's K1 graphs;
+//   bf16_xla       XLA's bfloat16_full epilogue — layer 1 of that rung.
 // Floor pooling at any H: pooled row r reads conv rows 3r..3r+2, which
 // read input rows 3r-1..3r+3, so the last pooled row reads input row
 // h_eff = 3*(H/3) and nothing below it; where h_eff == H that row is the
@@ -30,7 +43,11 @@
 // cores (989 TFLOP/s) that is ~0.02 ms a batch of 128 — about the time to
 // read the input once, so neither side dominates and a kernel that keeps
 // both the tensor cores and the loads busy wins.  In f32 on the CUDA cores
-// (67 TFLOP/s) the FMAs bound it at ~0.32 ms a batch.
+// (67 TFLOP/s) the FMAs bound it at ~0.32 ms a batch.  Layer 1 (144x256x3
+// -> 48x85x48) does 27 MACs per conv pixel and output channel: ~0.18 ms of
+// f32 FMAs a batch, but in bf16 its bytes (110 KB of uint8 in, 0.4 MB of
+// bf16 out a frame) bound it at ~0.02 ms, and its 6,144 items a batch
+// (3x layer 2's) make the staging and the epilogue the work to hide.
 //
 // The design, for both routes: persistent blocks, about one per SM, each
 // walking work items (frame, pooled row).  A block stages its weights in
@@ -62,6 +79,20 @@
 // of the block stages, between items, issuing all its loads before it
 // uses any loaded value.
 //
+// Layer 1 (conv1_block_mma, uint8 BGR, 3 channels).  Padding each tap to
+// 16 k would leave 19% of K useful, so the taps are packed: a pixel's
+// B column holds its three dx columns x 3 channels (k = dx * 3 + c) and
+// K is 3 k16 steps, one per dy.  Layer 1 has 9x layer 2's outputs a
+// batch, and the band's round trip of the accumulators through shared
+// memory to the pool would cost more than the MMAs, so here M is the
+// output channels (64 a group; the weights stay in registers as A for
+// the whole kernel) and N the 72 conv pixels of 8 pool windows, ordered
+// so that each thread's accumulators hold whole windows: the pool is a
+// max over its registers.  Each warpgroup walks its own items: it copies
+// an item's raw rows two items ahead (cp.async), packs each N tile's B
+// from them and runs it, with one warpgroup barrier a tile and none
+// across the block.
+//
 // f32 (conv_block_fma): register-blocked FMAs.  Each thread owns 4 output
 // channels x 1 pooled column (9 conv outputs x 4 = 36 accumulators), and
 // a block runs as many items at once as fill its 384 threads (one at
@@ -69,8 +100,13 @@
 // [dy][dx][c][Cout] so a thread's 4 channels are one float4, pixels as
 // [row][column][c] (stride Cin + 4, so neighbouring threads' columns fall
 // in other banks); per (dy, 4 input channels) a thread loads 12 weight
-// and 15 pixel float4s for 432 FMAs.  Summation stays f32 fmaf, in
-// another order than the plain version.
+// and 15 pixel float4s for 432 FMAs.  Layer 1 (uint8, conv1_rounds): a
+// thread holds the 5 x 5 pixels x 3 channels under one pool window in
+// registers and walks the output channels four at a time, 27 weight
+// float4s (one address across the warp) for 972 FMAs, none on a fourth,
+// zero channel; the raw rows are copied a round ahead and each item's
+// output, gathered in shared memory, leaves by one bulk (TMA) copy.
+// Summation stays f32 fmaf, in another order than the plain version.
 #include <math_constants.h>
 
 #include <cstdint>
@@ -86,8 +122,13 @@ using cutdet::Epilogue;
 
 constexpr int kBandCols = 21;                 // conv columns of an M tile
 constexpr int kBandWindows = kBandCols / 3;   // pool windows of an M tile
+// Layer 1 on the tensor cores: output channels on M (64 a group), the
+// conv pixels of 8 pool windows on N (72 = 3 conv rows x 24 columns).
+constexpr int kConv1Windows = 8;
+constexpr int kConv1Cols = 3 * kConv1Windows;
 constexpr int kTileRows = 64;                 // wgmma M
 constexpr int kMaxWarpgroups = 4;
+constexpr int kConv1Warpgroups = 5;  // layer 1's tensor-core blocks
 constexpr int kFmaThreads = 384;
 constexpr size_t kSmemLimit = 227 * 1024;
 
@@ -109,6 +150,13 @@ using Bf16XlaF32 = Instance<bf16, bf16, Epilogue::kXla, float>;
 using Bf16Out = Instance<bf16, bf16, Epilogue::kRoundAct, bf16>;
 using CmBf16 = Instance<bf16, bf16, Epilogue::kRoundAct, bf16, true, true>;
 using CmF32 = Instance<bf16, bf16, Epilogue::kRoundAct, float, true, true>;
+// Layer 1 from raw uint8 BGR (conv1_block): K2's numerics, K1's, XLA's.
+using U8F32 = Instance<uint8_t, float, Epilogue::kF32, float>;
+using U8Bf16 = Instance<uint8_t, bf16, Epilogue::kRoundAct, bf16>;
+using U8Bf16Xla = Instance<uint8_t, bf16, Epilogue::kXla, bf16>;
+
+template <typename I>
+constexpr bool kU8 = std::is_same_v<typename I::in_t, uint8_t>;
 
 inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
@@ -171,6 +219,67 @@ __device__ __forceinline__ void unrolled(int total, int t, int nt, Load load,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Layer 1's raw rows: an item's five input rows of uint8 BGR, input row
+// 3r - 1 + sr at byte sr * rs of ``raw``, input column xc at byte 16 + 3
+// * xc, with zeros left and right of the frame (the caller zeroes bytes
+// [0, 16) and [16 + 3W, rs) of each row once) and for rows outside it.
+constexpr int kRawLead = 16;
+
+// Zero the bytes of ``rows`` raw rows outside the frame's columns.
+__device__ void zero_raw_pads(unsigned char* raw, int rows, int rs, int W,
+                              int t, int nt) {
+  const int tail = rs - kRawLead - 3 * W;
+  for (int i = t; i < rows * (kRawLead + tail); i += nt) {
+    const int row = i / (kRawLead + tail), e = i - row * (kRawLead + tail);
+    raw[row * rs + (e < kRawLead ? e : 3 * W + e)] = 0;
+  }
+}
+
+// Copy an item's raw rows (frame rows outside [0, H) as zeros): by 16-byte
+// cp.async where every row is 16-byte aligned (``vec``; the caller commits
+// and waits), else byte by byte through registers.
+__device__ void copy_rows(const uint8_t* __restrict__ x, unsigned char* raw,
+                          int item, const Shape& s, int rs, bool vec, int t,
+                          int nt) {
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const int row = 3 * s.W;
+  const uint8_t* xb = x + static_cast<size_t>(b) * s.H * row;
+  if (vec) {
+    const uint32_t base = static_cast<uint32_t>(
+        __cvta_generic_to_shared(raw + kRawLead));
+    const int chunks = row / 16;
+    for (int i = t; i < cutdet::kRowsStaged * chunks; i += nt) {
+      const int sr = i / chunks, ch = i - sr * chunks;
+      const int y = 3 * r - 1 + sr;
+      const bool ok = y >= 0 && y < s.H;
+      cutdet::cp_async16(base + sr * rs + ch * 16,
+                         ok ? xb + y * row + ch * 16 : xb, ok);
+    }
+    return;
+  }
+  unrolled<8>(
+      cutdet::kRowsStaged * row, t, nt,
+      [&](int i) {
+        const int y = 3 * r - 1 + i / row;
+        return y >= 0 && y < s.H ? __ldg(xb + (3 * r - 1) * row + i)
+                                 : static_cast<unsigned char>(0);
+      },
+      [&](int i, unsigned char v) {
+        raw[(i / row) * rs + kRawLead + i % row] = v;
+      });
+}
+
+// Two uint8 values (byte ka of wa, byte kb of wb) as a bf16 pair, exactly:
+// 0x4B0000vv is the float 2^23 + v, so one subtraction gives v as a float,
+// whose top 16 bits are its bf16 (v has at most 8 significant bits).
+__device__ __forceinline__ uint32_t u8_pair_bf16(uint32_t wa, int ka,
+                                                 uint32_t wb, int kb) {
+  const float a = __uint_as_float(__byte_perm(wa, 0x4B000000u, 0x7540 | ka));
+  const float b = __uint_as_float(__byte_perm(wb, 0x4B000000u, 0x7540 | kb));
+  return __byte_perm(__float_as_uint(a - 8388608.f),
+                     __float_as_uint(b - 8388608.f), 0x7632);
 }
 
 // ---------------------------------------------------------------------
@@ -647,6 +756,222 @@ int launch_mma_n(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Layer 1's plan.
+struct Conv1Plan {
+  Shape s;
+  int tiles;   // N tiles (8 windows each) per item
+  int rs;      // bytes per raw row
+  int nwg;     // warpgroups per block
+  bool rvec;   // raw rows copied by 16-byte cp.async
+  uint32_t tile_bytes, raw_bytes;
+};
+
+// Layer 1's B tile (N tile j: windows 8j .. 8j+7, conv columns 24j ..
+// 24j+23), taps packed: for staged row sr and conv column c, k = dx * 3 +
+// ch holds channel ch of input column 24j + c + dx - 1, zeros for k >= 9,
+// so one k16 step takes a row's three taps and three steps, one per dy,
+// make the conv.  A row is three 8-pixel core-matrix blocks of wgmma's
+// K-major layout (k 0-7, then k 8-15, 128 bytes each), and its columns
+// are ordered so that lane t of the accumulator holds whole windows:
+// window 2t + u / 3, pixel u % 3 (u = 0..5) sits at column 8 * (u / 2) +
+// 2t + u % 2.  A pixel's nine bytes lie together in the raw row at any
+// byte offset: three aligned words, two funnel shifts and integer and add
+// instructions make the bf16s.  One pixel a thread (5 x 24 = 120).
+__device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
+                          const Conv1Plan& p, int lt) {
+  if (lt >= cutdet::kRowsStaged * kConv1Cols) return;
+  const int sr = lt / kConv1Cols, c = lt - sr * kConv1Cols;
+  const int o = kRawLead + 3 * (kConv1Cols * j + c - 1);
+  const int sh = (o & 3) * 8;
+  const uint32_t* q =
+      reinterpret_cast<const uint32_t*>(raw + sr * p.rs + (o & ~3));
+  const uint32_t w0 = q[0], w1 = q[1], w2 = q[2];
+  const uint32_t b0 = __funnelshift_r(w0, w1, sh);  // bytes 0-3
+  const uint32_t b1 = __funnelshift_r(w1, w2, sh);  // bytes 4-7
+  const int wl = c / 3, u = (wl & 1) * 3 + c % 3;
+  uint4* out = reinterpret_cast<uint4*>(
+      dst + (sr * 3 + u / 2) * 256 + ((wl >> 1) * 2 + (u & 1)) * 16);
+  out[0] = make_uint4(u8_pair_bf16(b0, 0, b0, 1), u8_pair_bf16(b0, 2, b0, 3),
+                      u8_pair_bf16(b1, 0, b1, 1), u8_pair_bf16(b1, 2, b1, 3));
+  out[8] = make_uint4(u8_pair_bf16(w2 >> sh, 0, 0u, 0), 0u, 0u, 0u);  // k 8
+  cutdet::fence_proxy_async();  // wgmma reads the tile through the async proxy
+}
+
+// Layer 1's N tile j on one warpgroup: D[64 channels x 72 pixels] =
+// weights (A, in registers) x the packed pixels (B), three k steps.  D's
+// columns 24cy + (8i + 2t + e) are conv row cy of the tile's pixels, so
+// a thread holds, for its channels 16 * warp + g and + 8, every value of
+// windows 2t and 2t + 1: the pool is a max over its own registers.  Then
+// the epilogue (the channels' bias and BN affine in ``par``) and a bf16
+// store per window and channel.
+template <typename I>
+__device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
+                           int item, int n0, const Conv1Plan& p,
+                           const float (&par)[6],
+                           typename I::out_t* __restrict__ out) {
+  float d[36];
+#pragma unroll
+  for (int i = 0; i < 36; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 36; ++i) cutdet::fence_operand(d[i]);
+  cutdet::wgmma_fence();
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+    cutdet::Wgmma<72>::mma(
+        d, wa[dy], cutdet::smem_desc(b_tile + dy * 3 * 256, 128, 256));
+  cutdet::wgmma_commit();
+  cutdet::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 36; ++i) cutdet::fence_operand(d[i]);
+
+  const int lt = threadIdx.x % 128, warp = lt / 32;
+  const int g = (lt % 32) >> 2, t = lt & 3;
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const int q = kConv1Windows * j + 2 * t;  // this thread's first window
+  typename I::out_t* orow =
+      out + ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + q) * s.Cout;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // channel rows g, g + 8
+    const int oc = n0 + 16 * warp + g + 8 * h;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+    for (int cy = 0; cy < 3; ++cy) {
+      const float* v = d + 12 * cy + 2 * h;  // d[4 * (3cy + i) + 2h + e]
+      m0 = fmaxf(m0, fmaxf(fmaxf(v[0], v[1]), v[4]));
+      m1 = fmaxf(m1, fmaxf(fmaxf(v[5], v[8]), v[9]));
+    }
+    if (oc >= s.Cout || q >= s.Wp) continue;
+    const float* pc = par + 3 * h;
+    cutdet::store(orow + oc, cutdet::epilogue<I::epi>(m0, pc[0], pc[1], pc[2]));
+    if (q + 1 < s.Wp)
+      cutdet::store(orow + s.Cout + oc,
+                    cutdet::epilogue<I::epi>(m1, pc[0], pc[1], pc[2]));
+  }
+}
+
+// Layer 1 on the tensor cores (uint8 in, 3 channels, taps packed).  Each
+// thread keeps its A fragments (the weights of its two channels) in
+// registers for the whole kernel.  Each warpgroup walks items of its own,
+// with its own raw-row slots and two B tiles, so no barrier spans the
+// block: it copies the raw rows of its item two ahead (cp.async groups),
+// and for each N tile packs its B (pack_tile) and runs conv1_tile, one
+// warpgroup barrier a tile.
+template <typename I>
+__global__ void __launch_bounds__(128 * kConv1Warpgroups)
+    conv1_block_mma(const uint8_t* __restrict__ x,
+                    const typename I::w_t* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ offset,
+                    typename I::out_t* __restrict__ out, Conv1Plan p) {
+  static_assert(std::is_same_v<typename I::w_t, bf16>);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Shape& s = p.s;
+  const int n0 = blockIdx.y * 64;
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int g = (lt % 32) >> 2, t = lt & 3;
+  const int oc0 = n0 + 16 * (lt / 32) + g;  // channels oc0 and oc0 + 8
+  unsigned char* mine = smem + wg * (2 * p.tile_bytes + 3 * p.raw_bytes);
+  unsigned char* raws = mine + 2 * p.tile_bytes;
+  zero_raw_pads(raws, 3 * cutdet::kRowsStaged, p.rs, s.W, lt, 128);
+  // A of k step dy, as mma.sync's m16k16 fragment: rows (channels) oc0 and
+  // oc0 + 8, k 2t, 2t + 1 and 2t + 8, 2t + 9, with k = dx * 3 + c.
+  const unsigned short* wbits = reinterpret_cast<const unsigned short*>(w);
+  auto wt = [&](int dy, int k, int oc) -> uint32_t {
+    return k < 9 && oc < s.Cout ? wbits[((dy * 3 + k / 3) * 3 + k % 3) *
+                                            s.Cout + oc]
+                                : 0u;
+  };
+  uint32_t wa[3][4];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int k = 2 * t + (f >> 1) * 8, oc = oc0 + (f & 1) * 8;
+      wa[dy][f] = wt(dy, k, oc) | wt(dy, k + 1, oc) << 16;
+    }
+  float par[6];  // bias, BN scale, BN offset of oc0, then of oc0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int oc = oc0 + 8 * h;
+    par[3 * h] = oc < s.Cout ? bias[oc] : 0.f;
+    par[3 * h + 1] = oc < s.Cout ? scale[oc] : 0.f;
+    par[3 * h + 2] = oc < s.Cout ? offset[oc] : 0.f;
+  }
+  cutdet::warpgroup_sync(1 + wg);  // the pads before the copies
+
+  const uint32_t tiles = static_cast<uint32_t>(__cvta_generic_to_shared(mine));
+  const int step = gridDim.x * p.nwg;
+  const int first = blockIdx.x * p.nwg + wg;
+  for (int k = 0; k < 2; ++k) {
+    if (first + k * step < s.items)
+      copy_rows(x, raws + k * p.raw_bytes, first + k * step, s, p.rs, p.rvec,
+                lt, 128);
+    cutdet::cp_async_commit();
+  }
+  for (int k = 0, item = first; item < s.items; ++k, item += step) {
+    cutdet::cp_async_wait_group<1>();  // this item's rows have landed
+    cutdet::warpgroup_sync(1 + wg);
+    if (item + 2 * step < s.items)
+      copy_rows(x, raws + (k + 2) % 3 * p.raw_bytes, item + 2 * step, s, p.rs,
+                p.rvec, lt, 128);
+    cutdet::cp_async_commit();
+    const unsigned char* raw = raws + k % 3 * p.raw_bytes;
+    for (int j = 0; j < p.tiles; ++j) {
+      // Tile j's B goes to buffer j & 1: the barrier after it also
+      // retires every wgmma of tile j - 2, which read that buffer.
+      pack_tile(raw, mine + (j & 1) * p.tile_bytes, j, p, lt);
+      cutdet::warpgroup_sync(1 + wg);
+      conv1_tile<I>(tiles + (j & 1) * p.tile_bytes, wa, j, item, n0, p, par,
+                    out);
+    }
+  }
+}
+
+// Layer 1's launch: N tiles of 8 windows, two B tiles and three raw-row
+// slots a warpgroup, as many warpgroups a block as fit, output channels in
+// groups of 64 (blockIdx.y).
+template <typename I>
+int launch_conv1(const void* x, const void* w, const void* bias,
+                 const void* scale, const void* offset, void* out,
+                 const Shape& s, cudaStream_t stream) {
+  if (s.Cin != 3) return static_cast<int>(cudaErrorInvalidValue);
+  Conv1Plan p{};
+  p.s = s;
+  p.tiles = (s.Wp + kConv1Windows - 1) / kConv1Windows;
+  p.rvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && 3 * s.W % 16 == 0;
+  // A row holds the frame's columns and every byte pack_tile reads past
+  // them (three words from the last tile's last pixel).
+  const int reach = kRawLead + 3 * (kConv1Cols * p.tiles - 1) + 12;
+  const int need = kRawLead + 3 * s.W > reach ? kRawLead + 3 * s.W : reach;
+  p.rs = (need + 15) / 16 * 16;
+  p.raw_bytes = static_cast<uint32_t>(cutdet::kRowsStaged * p.rs);
+  p.tile_bytes = cutdet::kRowsStaged * 3 * 256;
+  const size_t per_wg = 2 * p.tile_bytes + 3 * p.raw_bytes;
+  p.nwg = kConv1Warpgroups;
+  while (p.nwg > 1 && p.nwg * per_wg > kSmemLimit) --p.nwg;
+  const size_t smem = p.nwg * per_wg;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = conv1_block_mma<I>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 128 * p.nwg;
+  const int groups = (s.Cout + 63) / 64;
+  const dim3 grid(persistent_blocks(kernel, threads, smem,
+                                    (s.items + p.nwg - 1) / p.nwg, groups),
+                  groups);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(x),
+      static_cast<const typename I::w_t*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(scale),
+      static_cast<const float*>(offset),
+      static_cast<typename I::out_t*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename I>
 int launch_mma(const void* x, const void* w, const void* bias,
                const void* scale, const void* offset, void* out,
@@ -716,10 +1041,16 @@ struct FmaPlan {
   int wst;     // staged columns: 3 * Wp + 2
   int cg;      // output channels per group (a multiple of 4)
   int ip;      // items a block stages and runs at once
-  int tasks;   // (cg / 4) * Wp threads' work per item
+  int tasks;   // threads' work per item: (cg / 4) * Wp (uint8: Wp)
+  int rs;      // uint8: bytes per raw row
   bool vec;    // 16-byte cp.async staging of the input (Cin % 4 == 0)
   bool wvec;   // ... and of the weights (Cout % 4 == 0)
+  bool rvec;   // uint8: raw rows copied by 16-byte cp.async
+  bool bulk;   // uint8: each item's output stored by one bulk copy
   uint32_t w_bytes, buf_bytes;
+  // uint8: the bias and BN affine, an item's raw rows and its pooled
+  // output ([Wp][Cout] floats, as in ``out``).
+  uint32_t par_bytes, raw_bytes, out_bytes;
 };
 
 __device__ void stage_fma(const float* __restrict__ x, float* dst, int item,
@@ -832,9 +1163,140 @@ __device__ void fma_task(const float* in, const float* wsm, int o4, int px,
   }
 }
 
+// Layer 1 (uint8, exactly 3 channels): every output channel of the group
+// at pooled column px.  The thread widens the 5 x 5 pixels x 3 channels
+// under its pool window (staged rows 0-4, input columns 3px-1 .. 3px+3)
+// from the raw rows into registers once, then walks the channels four at
+// a time: 27 weight float4s, the same address across the warp (one
+// shared-memory wavefront each), for 972 FMAs, none on a pad.  The pooled
+// outputs, with the bias and BN affine from ``par``, go to ``dst``, the
+// column's row of the item's output in shared memory.
+template <typename I>
+__device__ void fma_column(const unsigned char* raw, const float* wsm,
+                           const float* par, int px, const FmaPlan& p,
+                           float* dst) {
+  float v[5][5][3];  // staged row, column from 3px - 1, channel
+#pragma unroll
+  for (int sr = 0; sr < 5; ++sr)
+#pragma unroll
+    for (int e = 0; e < 15; ++e)  // zeros outside the frame (copy_rows)
+      v[sr][e / 3][e % 3] = raw[sr * p.rs + kRawLead + 3 * (3 * px - 1) + e];
+#pragma unroll 1
+  for (int o = 0; o < p.cg; o += 4) {
+    float acc[3][3][4];  // conv row, conv column, channel
+#pragma unroll
+    for (int cy = 0; cy < 3; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < 3; ++cx)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[cy][cx][i] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float4 wv = *reinterpret_cast<const float4*>(
+              wsm + ((dy * 3 + dx) * p.c4 + c) * p.cg + o);
+          const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int cy = 0; cy < 3; ++cy)
+#pragma unroll
+            for (int cx = 0; cx < 3; ++cx)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[cy][cx][i] =
+                    fmaf(v[cy + dy][cx + dx][c], wc[i], acc[cy][cx][i]);
+        }
+    float y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int cy = 0; cy < 3; ++cy)
+#pragma unroll
+        for (int cx = 0; cx < 3; ++cx) m = fmaxf(m, acc[cy][cx][i]);
+      y[i] = cutdet::epilogue<I::epi>(m, par[o + i], par[p.cg + o + i],
+                                      par[2 * p.cg + o + i]);
+    }
+    if (p.s.Cout % 4 == 0) {
+      *reinterpret_cast<float4*>(dst + o) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (o + i < p.s.Cout) dst[o + i] = y[i];
+    }
+  }
+}
+
+// Layer 1 on the CUDA cores (uint8 in, one output-channel group): ip
+// items a round, one pooled column a thread.  The next round's raw rows
+// are copied while this round's run; each item's output, gathered in
+// shared memory, leaves by one bulk copy that runs on into the next round
+// (or, where the sizes do not allow it, by all threads).
+template <typename I>
+__device__ void conv1_rounds(const uint8_t* __restrict__ x, const float* wsm,
+                             float* bufs, const FmaPlan& p,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ offset,
+                             float* __restrict__ out) {
+  const Shape& s = p.s;
+  float* par = bufs - p.par_bytes / 4;
+  for (int i = threadIdx.x; i < 3 * p.cg; i += blockDim.x) {
+    const int oc = i % p.cg;
+    const float* src = i < p.cg ? bias : i < 2 * p.cg ? scale : offset;
+    par[i] = oc < s.Cout ? src[oc] : 0.f;
+  }
+  unsigned char* raws = reinterpret_cast<unsigned char*>(bufs);
+  float* outs = reinterpret_cast<float*>(raws + 2 * p.ip * p.raw_bytes);
+  zero_raw_pads(raws, 2 * p.ip * cutdet::kRowsStaged, p.rs, s.W, threadIdx.x,
+                blockDim.x);
+  __syncthreads();  // the pads before the copies
+  const int stride = gridDim.x * p.ip, n = s.Wp * s.Cout;
+  auto copy = [&](int base, int slot) {
+    for (int j = 0; j < p.ip && base + j < s.items; ++j)
+      copy_rows(x, raws + (slot * p.ip + j) * p.raw_bytes, base + j, s, p.rs,
+                p.rvec, threadIdx.x, blockDim.x);
+  };
+  copy(blockIdx.x * p.ip, 0);
+  for (int k = 0, base = blockIdx.x * p.ip; base < s.items;
+       ++k, base += stride) {
+    cutdet::cp_async_wait_all();
+    if (threadIdx.x == 0) cutdet::bulk_wait_read<0>();  // outs is free
+    __syncthreads();
+    if (base + stride < s.items) copy(base + stride, (k + 1) & 1);
+    for (int t = threadIdx.x; t < p.ip * p.tasks; t += blockDim.x) {
+      const int j = t / p.tasks;
+      if (base + j >= s.items) break;
+      const int px = t - j * p.tasks;
+      fma_column<I>(raws + ((k & 1) * p.ip + j) * p.raw_bytes, wsm, par, px,
+                    p, outs + j * (p.out_bytes / 4) + px * s.Cout);
+    }
+    cutdet::fence_proxy_async();  // the bulk copy reads outs
+    __syncthreads();
+    for (int j = 0; j < p.ip && base + j < s.items; ++j) {
+      float* dst = out + static_cast<size_t>(base + j) * n;
+      const float* src = outs + j * (p.out_bytes / 4);
+      if (p.bulk) {
+        if (threadIdx.x == 0)
+          cutdet::bulk_store(dst,
+                             static_cast<uint32_t>(
+                                 __cvta_generic_to_shared(src)),
+                             n * 4);
+      } else {
+        for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+      }
+    }
+    if (p.bulk && threadIdx.x == 0) cutdet::bulk_commit();
+  }
+  if (threadIdx.x == 0) cutdet::bulk_wait_all();
+}
+
 template <typename I>
 __global__ void __launch_bounds__(kFmaThreads, 1)
-    conv_block_fma(const float* __restrict__ x, const float* __restrict__ w,
+    conv_block_fma(const typename I::in_t* __restrict__ x,
+                   const float* __restrict__ w,
                    const float* __restrict__ bias,
                    const float* __restrict__ scale,
                    const float* __restrict__ offset, float* __restrict__ out,
@@ -877,24 +1339,27 @@ __global__ void __launch_bounds__(kFmaThreads, 1)
         },
         [&](int i, float v) { wsm[i] = v; });
   }
-  float* bufs = fsm + p.w_bytes / 4;
-
-  // ip items at a time: stage them all, then every thread runs tasks.
-  for (int base = blockIdx.x * p.ip; base < p.s.items;
-       base += gridDim.x * p.ip) {
-    for (int j = 0; j < p.ip && base + j < p.s.items; ++j)
-      stage_fma(x, bufs + j * (p.buf_bytes / 4), base + j, p);
-    cutdet::cp_async_wait_all();
-    __syncthreads();
-    const int per = p.cg / 4;
-    for (int t = threadIdx.x; t < p.ip * p.tasks; t += blockDim.x) {
-      const int j = t / p.tasks;
-      if (base + j >= p.s.items) break;
-      const int tt = t - j * p.tasks;
-      fma_task<I>(bufs + j * (p.buf_bytes / 4), wsm, tt % per, tt / per,
-                  base + j, o_base, p, bias, scale, offset, out);
+  float* bufs = fsm + (p.w_bytes + p.par_bytes) / 4;
+  if constexpr (kU8<I>) {
+    conv1_rounds<I>(x, wsm, bufs, p, bias, scale, offset, out);
+  } else {
+    // ip items at a time: stage them all, then every thread runs tasks.
+    for (int base = blockIdx.x * p.ip; base < p.s.items;
+         base += gridDim.x * p.ip) {
+      for (int j = 0; j < p.ip && base + j < p.s.items; ++j)
+        stage_fma(x, bufs + j * (p.buf_bytes / 4), base + j, p);
+      cutdet::cp_async_wait_all();
+      __syncthreads();
+      const int per = p.cg / 4;
+      for (int t = threadIdx.x; t < p.ip * p.tasks; t += blockDim.x) {
+        const int j = t / p.tasks;
+        if (base + j >= p.s.items) break;
+        const int tt = t - j * p.tasks;
+        fma_task<I>(bufs + j * (p.buf_bytes / 4), wsm, tt % per, tt / per,
+                    base + j, o_base, p, bias, scale, offset, out);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -907,24 +1372,39 @@ int launch_fma(const void* x, const void* w, const void* bias,
   p.c4 = (s.Cin + 3) / 4 * 4;
   p.sp = p.c4 + 4;
   p.wst = 3 * s.Wp + 2;
-  p.vec = s.Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec = !kU8<I> && s.Cin % 4 == 0 && x16;
   p.wvec = s.Cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // Per item: a staged f32 tile, or (uint8) two slots of its raw rows
+  // (zero pads around the frame's columns) and its output.
   p.buf_bytes = static_cast<uint32_t>(
-      align128(size_t(cutdet::kRowsStaged) * p.wst * p.sp * 4));
+      kU8<I> ? 0 : align128(size_t(cutdet::kRowsStaged) * p.wst * p.sp * 4));
+  // (3 bytes past the frame: the last window's pixels reach column W.)
+  p.rs = (kRawLead + 3 * s.W + 3 + 15) / 16 * 16;
+  p.rvec = x16 && 3 * s.W % 16 == 0;
+  p.raw_bytes = static_cast<uint32_t>(kU8<I> ? cutdet::kRowsStaged * p.rs : 0);
+  p.out_bytes = static_cast<uint32_t>(
+      kU8<I> ? align128(size_t(s.Wp) * s.Cout * 4) : 0);
+  p.bulk = reinterpret_cast<uintptr_t>(out) % 16 == 0 && s.Wp * s.Cout % 4 == 0;
+  const size_t item_bytes = p.buf_bytes + 2 * size_t(p.raw_bytes) + p.out_bytes;
+  if (kU8<I> && s.Cin != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int cout4 = (s.Cout + 3) / 4 * 4;
   size_t smem = 0;
-  // The fewest output-channel groups whose weights fit beside one item,
-  // then as many items at once as fill the block's threads and fit.
-  for (int groups = 1; groups <= cout4 / 4 && !smem; ++groups) {
+  // The fewest output-channel groups whose weights fit beside one item
+  // (uint8: one group), then as many items at once as fill the block's
+  // threads and fit.
+  for (int groups = 1; groups <= (kU8<I> ? 1 : cout4 / 4) && !smem;
+       ++groups) {
     const int per = (cout4 / 4 + groups - 1) / groups * 4;
-    const size_t wb = align128(size_t(9) * p.c4 * per * 4);
-    if (wb + p.buf_bytes > kSmemLimit) continue;
+    p.par_bytes = static_cast<uint32_t>(kU8<I> ? align128(3 * per * 4) : 0);
+    const size_t wb = align128(size_t(9) * p.c4 * per * 4) + p.par_bytes;
+    if (wb + item_bytes > kSmemLimit) continue;
     p.cg = per;
-    p.w_bytes = static_cast<uint32_t>(wb);
-    p.tasks = (per / 4) * s.Wp;
+    p.w_bytes = static_cast<uint32_t>(wb - p.par_bytes);
+    p.tasks = (kU8<I> ? 1 : per / 4) * s.Wp;
     p.ip = kFmaThreads / p.tasks > 1 ? kFmaThreads / p.tasks : 1;
-    while (p.ip > 1 && wb + p.ip * size_t(p.buf_bytes) > kSmemLimit) --p.ip;
-    smem = wb + p.ip * size_t(p.buf_bytes);
+    while (p.ip > 1 && wb + p.ip * item_bytes > kSmemLimit) --p.ip;
+    smem = wb + p.ip * item_bytes;
   }
   if (!smem) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (cout4 + p.cg - 1) / p.cg;
@@ -939,7 +1419,7 @@ int launch_fma(const void* x, const void* w, const void* bias,
   const dim3 grid(persistent_blocks(kernel, threads, smem, rounds, groups),
                   groups);
   kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const typename I::in_t*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(scale),
       static_cast<const float*>(offset), static_cast<float*>(out), p);
   return static_cast<int>(cudaGetLastError());
@@ -956,6 +1436,8 @@ int launch(const void* x, const void* w, const void* bias, const void* scale,
   const auto st = static_cast<cudaStream_t>(stream);
   if constexpr (Fma) {
     return launch_fma<I>(x, w, bias, scale, offset, out, s, st);
+  } else if constexpr (kU8<I>) {
+    return launch_conv1<I>(x, w, bias, scale, offset, out, s, st);
   } else {
     return launch_mma<I>(x, w, bias, scale, offset, out, s, st);
   }
@@ -978,3 +1460,20 @@ CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_xla_f32, Bf16XlaF32, false)
 CUTDET_CONV_BLOCK(cutdet_conv_block_bf16_out, Bf16Out, false)
 CUTDET_CONV_BLOCK(cutdet_conv_block_cm_bf16, CmBf16, false)
 CUTDET_CONV_BLOCK(cutdet_conv_block_cm_f32, CmF32, false)
+
+// Layer 1 (conv1_block): B frames of uint8 [H, W, 3].
+#define CUTDET_CONV1_BLOCK(NAME, INSTANCE, FMA)                             \
+  extern "C" int NAME(const void* x, const void* w, const void* bias,        \
+                      const void* scale, const void* offset, void* out,      \
+                      int B, int H, int W, int Cout, void* stream) {         \
+    return launch<INSTANCE, FMA>(x, w, bias, scale, offset, out, B, H, W, 3, \
+                                 Cout, stream);                              \
+  }
+
+CUTDET_CONV1_BLOCK(cutdet_conv1_block, U8F32, true)
+CUTDET_CONV1_BLOCK(cutdet_conv1_block_bf16, U8Bf16, false)
+CUTDET_CONV1_BLOCK(cutdet_conv1_block_bf16_xla, U8Bf16Xla, false)
+
+extern "C" const char* cutdet_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

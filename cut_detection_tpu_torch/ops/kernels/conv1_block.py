@@ -1,4 +1,5 @@
-"""Layer-1 CNN block from raw uint8 BGR: ``csrc/conv1_block.cu``.
+"""Layer-1 CNN block from raw uint8 BGR: ``csrc/conv_block.cu``'s uint8
+instances (``cutdet_conv1_block*``).
 
 conv3x3 (zero pad 1) + bias -> ReLU -> maxpool 3x3/3 (floor) -> eval BN,
 from raw pixels: pass the preprocess-folded kernel
@@ -23,12 +24,19 @@ from raw pixels: pass the preprocess-folded kernel
   ``out_dtype=bfloat16, nhwc_out=True``).  Unlike K1, any H >= 3.
 
 What bounds it on an H100: a 144x256 frame is ~110 KB of uint8 in and
-~0.78 MB of pooled f32 out (half in bf16), but 27*48 MACs per conv pixel —
-about 100 FLOP per byte, so the f32 CUDA cores bound it, not memory.  The
-fused kernel keeps the [144,256,48] conv output (7 MB per frame in f32)
-out of device memory; the simple design stages a pooled row's five input
-rows in shared memory, holds each channel's 27 weights in registers and
-feeds nine FMAs from five staged pixels (see the .cu header).
+~0.78 MB of pooled f32 out (half in bf16), for 27*48 MACs per conv pixel.
+In f32 the CUDA cores bound it (~0.18 ms a batch of 128); in bf16 on the
+tensor cores its bytes do (~0.02 ms), and its 6,144 (pooled row, frame)
+items a batch, 9x layer 2's outputs, make staging and the pool the work
+to hide.  ``f32`` runs ``conv_block``'s CUDA-core route with exactly 3
+input channels: a thread holds one pool window's 5x5x3 pixels in
+registers and walks the output channels four at a time.  ``bf16`` and
+``bf16_xla`` run ``wgmma`` with the three dx taps packed into the 16 k
+of a step (3 k steps, one per dy, instead of 9), the output channels on
+M (weights in registers) and 8 pool windows' conv pixels on N, ordered
+so that each thread pools its own accumulators.  The fused kernel keeps
+the [144,256,48] conv output (7 MB per frame in f32) out of device
+memory (see the .cu header).
 
 The BN affine is computed by the caller: ``s = gamma * rsqrt(var +
 eps)`` (``ops.nn.bn_scale_offset``) for ``conv1_pool_fused`` and

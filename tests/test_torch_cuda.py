@@ -41,6 +41,9 @@ from cut_detection_tpu_torch.ops.kernels.conv1_block import (
     conv1_block,
     conv1_block_plain,
 )
+from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+    instance as conv1_instance,
+)
 from cut_detection_tpu_torch.ops.kernels.conv_block import (
     CM_INSTANCES,
     INSTANCES,
@@ -163,6 +166,54 @@ def test_conv1_block_bf16_kernel(cuda_dev, h, w):
     assert got.dtype == torch.bfloat16
     want = conv1_block_plain(*args, compute_dtype="bfloat16_full")
     _assert_within_bf16_crossing(got, want, args[-1])
+
+
+# (B, H, W, Cout) layer 1's tilings must survive: W = 256, 40, 22 and 48
+# (Wp = 85, 13, 7, 16: the tensor-core route's last 8-window tile partly
+# filled or exactly full; raw rows copied by 16-byte cp.async where 3W is
+# a multiple of 16, else byte by byte), H % 3 = 0, 2 and 1, a 3x3 frame,
+# batches of 1 and 133 (not a multiple of the persistent grid), and Cout
+# = 32, 48 and 64 (half, three quarters and all of a 64-channel group).
+CONV1_TILING = [(1, 144, 256, 32), (133, 143, 40, 48), (2, 142, 22, 64),
+                (133, 142, 256, 48), (1, 3, 3, 64), (3, 143, 22, 32),
+                (2, 144, 48, 48)]
+# conv1_block's instances: (compute_dtype, numerics, rsqrt BN).
+CONV1_KEYS = [(None, "pallas", True), ("bfloat16_full", "xla", True),
+              ("bfloat16_full", "pallas", False)]
+
+
+@pytest.mark.parametrize("shape", CONV1_TILING)
+@pytest.mark.parametrize("key", CONV1_KEYS)
+def test_conv1_block_kernel_tiling(cuda_dev, key, shape):
+    """Every layer-1 instance against its plain version on seeded uint8
+    frames and a seeded kernel at the folded layer's scale (weights of
+    a few 1e-3 on pixels up to 255), one launch on its own counter."""
+    compute_dtype, numerics, rsqrt = key
+    b, h, w, cout = shape
+    rng = np.random.default_rng(b * h * w + cout)
+    x = T(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(cuda_dev)
+    k = T((rng.normal(0, 0.1, (3, 3, 3, cout)) / 64).astype(np.float32))
+    bias, gamma, beta, mean = (T(rng.normal(m, 0.1, cout)
+                                 .astype(np.float32)).to(cuda_dev)
+                               for m in (0, 1, 0, 0.5))
+    var = T(rng.uniform(0.5, 2, cout).astype(np.float32)).to(cuda_dev)
+    scale, offset = bn_scale_offset(mean, var, gamma, beta, rsqrt=rsqrt)
+    k = k.to(cuda_dev, torch.bfloat16 if compute_dtype else torch.float32)
+    args = (x, k, bias, scale, offset)
+    kw = {"compute_dtype": compute_dtype, "numerics": numerics}
+    name = conv1_instance(compute_dtype, numerics)[0]
+    n = dict(conv1_block.instance_launches)
+    got = conv1_block(*args, **kw)
+    want = conv1_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert conv1_block.instance_launches == {**n, name: n[name] + 1}
+    assert got.shape == want.shape == (b, h // 3, (w - 3) // 3 + 1, cout)
+    assert got.dtype == want.dtype
+    if compute_dtype is None:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        _assert_within_bf16_crossing(
+            got, want, offset, (scale, bias) if numerics == "xla" else None)
 
 
 def _check_instance(key, b, h, w, cin, cout, dev):
