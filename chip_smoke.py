@@ -26,7 +26,10 @@ Phases, each of which raises on failure:
              bf16 instance and XLA's bf16_xla) at 144x256 and 143x256,
              the mid-stack block's five NHWC instances and K4's two
              channel-major ones at 48x85 and 16x28, the resize +
-             normalize kernel at 1280x720 -> 256x144;
+             normalize kernel at 1280x720 -> 256x144, the YUV -> BGR
+             kernel on a seeded batch of 128 planes at 144x256 (max
+             diff 0) and on the exhaustive 2^24 (Y, U, V) probe against
+             the host's numpy twin;
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -35,6 +38,11 @@ Phases, each of which raises on failure:
 5. host    — where the slice loop's time per batch goes: the loop's
              frames/s, each of its pieces timed alone, and the card's
              busy share read from a ``torch.profiler`` trace of the loop;
+5b. yuv420 — the slice stream as packed planar YUV420 through the device
+             loop with ``yuv_dims`` at every rung: one ``yuv420_to_bgr``
+             launch a batch, conf and pred identical to the loop on the
+             planes converted on the host; then the host phase's
+             breakdown of the float32 loop on planes, beside bgr's;
 6. preprocess — a seeded synthetic 1280x720 stream through the device
              loop with the resize on the card (``--device-resize``): the
              exact path against the same frames resized on the host,
@@ -70,8 +78,14 @@ Phases, each of which raises on failure:
              quantized rung the default on both clips, byte for byte;
              then the labelled eval-corpus clips at both bf16 rungs and
              ``corpus_a`` and ``corpus_nat`` at both quantized rungs,
-             held to the JAX package's gates.  Kernel launches are
-             counted by instance in every run.
+             held to the JAX package's gates.  Where the native
+             decoder has its YUV entry points: ``--transfer auto`` must
+             resolve to yuv420; the golden clips at float32 under
+             ``--transfer yuv420`` and ``auto`` byte for byte, the other
+             rungs under yuv420 on ``clip.mp4`` at frame accuracy >=
+             0.99, and corpus a, b, c and nat at float32 and
+             ``uint8_chain`` under yuv420 at the JAX gates.  Kernel
+             launches are counted by instance in every run.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -469,12 +483,62 @@ def phase_kernels(dev):
         cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)), None,
         (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
         stream_ms(lambda: resize_normalize(raw, *MODEL_HW)))
+    results["yuv420_to_bgr"] = yuv_kernel(dev, record)
     for name, row in results.items():
-        log(f"kernels: {name} at the main path's shape {row['ms']:.4f} ms "
-            f"(earlier {EARLIER_MS[name]})")
+        if name in EARLIER_MS:
+            log(f"kernels: {name} at the main path's shape {row['ms']:.4f} "
+                f"ms (earlier {EARLIER_MS[name]})")
     log(f"kernels: launches so far {read_launches()} (comparisons and "
         "timing only)")
     return results
+
+
+def yuv_kernel(dev, record):
+    """``yuv420_to_bgr`` against its plain version at the main path's
+    shape, a seeded batch of 128 planes at 144x256, with a max diff of
+    0, then on the exhaustive probe (one 4096x4096 image holding every
+    (Y, U, V) combination) against the host's numpy twin; its row, timed
+    at the main path's shape."""
+    from cut_detection_tpu_torch.geometry import yuv420_nbytes
+    from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import (
+        yuv420_to_bgr,
+        yuv420_to_bgr_plain,
+    )
+    from cut_detection_tpu_torch.ops.yuv import (
+        exhaustive_probe,
+        pack_yuv420,
+        yuv420_to_bgr_np,
+    )
+
+    h, w = MODEL_HW
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, (BATCH, yuv420_nbytes(h, w)),
+                                      dtype=np.uint8)).to(dev)
+    got = yuv420_to_bgr(x, h, w)
+    ref = yuv420_to_bgr_plain(x, h, w)
+    torch.cuda.synchronize()
+    err = (got.int() - ref.int()).abs().max().item()
+    t0 = time.perf_counter()
+    probe = pack_yuv420(*exhaustive_probe())
+    want = yuv420_to_bgr_np(probe, 4096, 4096)
+    host_s = time.perf_counter() - t0
+    probe_got = yuv420_to_bgr(torch.from_numpy(probe[None]).to(dev), 4096,
+                              4096)[0].cpu().numpy()
+    bad = int((probe_got != want).sum())
+    log(f"kernel yuv420_to_bgr: exhaustive 2^24 (Y, U, V) probe, 4096x4096, "
+        f"{bad} bytes differ from the host's numpy twin ({host_s:.1f} s on "
+        f"the host) {'OK' if bad == 0 else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"yuv420_to_bgr: {bad} bytes of the exhaustive "
+                             "probe differ from yuv420_to_bgr_np")
+    # Bytes bound: the planes read once, the BGR frames written once; a
+    # few integer operations a byte are far below the ALU rate.
+    nbytes = x.numel() + got.numel()
+    return record("yuv420_to_bgr", tuple(x.shape), float(err), "max diff 0",
+                  err == 0, cuda_ms(lambda: yuv420_to_bgr(x, h, w)),
+                  cuda_ms(lambda: yuv420_to_bgr_plain(x, h, w)), None,
+                  (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+                  stream_ms(lambda: yuv420_to_bgr(x, h, w)))
 
 
 def synthetic_frames(n: int, h: int = 144, w: int = 256,
@@ -510,9 +574,13 @@ def _wrappers():
     from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
         resize_normalize,
     )
+    from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import (
+        yuv420_to_bgr,
+    )
 
     return {"conv1_block": conv1_block, "conv_block": conv_block,
-            "resize_normalize": resize_normalize}
+            "resize_normalize": resize_normalize,
+            "yuv420_to_bgr": yuv420_to_bgr}
 
 
 def zero_launches() -> None:
@@ -564,12 +632,15 @@ PATH_LAUNCHES = {
 QUANTIZED = ("uint8_pool", "uint8_chain")
 
 
-def per_batch(n: int, precision: str = "float32",
-              fused: bool = False) -> dict:
-    """The launches by instance that ``n`` batches of a path should make."""
+def per_batch(n: int, precision: str = "float32", fused: bool = False,
+              yuv: bool = False) -> dict:
+    """The launches by instance that ``n`` batches of a path should make;
+    ``yuv``: the yuv420 transfer, one ``yuv420_to_bgr`` a batch first."""
     want = dict.fromkeys(read_launches(), 0)
     for inst, k in PATH_LAUNCHES[(precision, fused)].items():
         want[inst] = k * n
+    if yuv:
+        want["yuv420_to_bgr"] = n
     return want
 
 
@@ -719,34 +790,29 @@ def _trace_device_ms(prof):
     return union_ms(kernels), union_ms(copies), per_name
 
 
-def phase_host(dev, frames):
-    """Where the slice loop's time per batch goes.
-
-    The loop (``classify_batches`` over ``batch_frames`` of frames in
-    host memory) is timed over 20 batches; each of its pieces is timed
-    alone; then the same loop runs under ``torch.profiler`` and the
-    card's busy share is read from that trace.
-    """
-    from cut_detection_tpu_torch.models.assembly import load_default_net
+def host_breakdown(tag: str, dev, net, step, items, **opts) -> dict:
+    """Where a loop's time per batch goes: ``classify_batches`` over
+    ``batch_frames`` of ``items`` in host memory, 20 batches, timed;
+    each of its pieces timed alone (the stack, the pageable upload, the
+    pinned upload, the step on a resident batch); then the loop under
+    ``torch.profiler`` for the card's busy share.  ``opts`` go to
+    ``classify_batches`` (``yuv_dims``).  Returns the figures."""
     from cut_detection_tpu_torch.pipeline import (
         batch_frames,
         classify_batches,
-        make_classify_step,
     )
 
-    net, _ = load_default_net(dev)
-    step = make_classify_step(net)
-    n, reps = len(frames), 20
-    listed = list(frames[:BATCH])
+    n, reps = len(items), 20
+    listed = list(items[:BATCH])
     batch = np.stack(listed)
     resident = torch.from_numpy(batch).to(dev)
     pinned = torch.from_numpy(batch).pin_memory()
 
     def loop():
-        stream = (frames[i % n] for i in range(reps * BATCH))
+        stream = (items[i % n] for i in range(reps * BATCH))
         return classify_batches(batch_frames(stream, BATCH), net,
                                 batch_size=BATCH, length=reps * BATCH,
-                                print_every=0)
+                                print_every=0, **opts)
 
     loop()  # warm-up
     torch.cuda.synchronize()
@@ -754,30 +820,45 @@ def phase_host(dev, frames):
     _, _, stats = loop()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     batch_ms = wall_ms / reps
-    log(f"host: slice loop, {reps} batches of {BATCH} from host memory: "
-        f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s end to end (steady "
-        f"{stats.steady_frames_per_sec:.1f}; earlier {EARLIER_FPS['loop']}), "
-        f"{batch_ms:.4f} ms per batch")
+    out = {"fps": 1e3 * reps * BATCH / wall_ms, "batch_ms": batch_ms}
+    log(f"{tag}: loop, {reps} batches of {BATCH} from host memory: "
+        f"{out['fps']:.1f} frames/s end to end (steady "
+        f"{stats.steady_frames_per_sec:.1f}), {batch_ms:.4f} ms per batch")
     pieces = (
-        ("np.stack of the batch's frames (batch_frames)",
+        ("stack", "np.stack of the batch's items (batch_frames)",
          host_ms(lambda: np.stack(listed))),
-        ("synchronous pageable upload (the loop's)",
-         host_ms(lambda: torch.from_numpy(batch).to(dev))),
-        ("upload from pinned memory (not used yet)",
+        ("upload", f"synchronous pageable upload of {batch.nbytes:,} B "
+         "(the loop's)", host_ms(lambda: torch.from_numpy(batch).to(dev))),
+        ("pinned", "upload from pinned memory (not used yet)",
          host_ms(lambda: pinned.to(dev, non_blocking=True))),
-        ("device step on a resident batch (CUDA events; earlier "
-         f"{EARLIER_STEP_MS['host']} ms)", cuda_ms(lambda: step(resident))),
+        ("step", "device step on a resident batch (CUDA events)",
+         cuda_ms(lambda: step(resident))),
     )
-    for name, ms in pieces:
-        log(f"host:   {name}: {ms:.4f} ms alone, "
+    for key, name, ms in pieces:
+        out[key] = ms
+        log(f"{tag}:   {name}: {ms:.4f} ms alone, "
             f"{100 * ms / batch_ms:.1f}% of the batch")
+    out["busy"] = trace_loop(tag, loop, reps)
+    return out
 
-    trace_loop("host", loop, reps)
+
+def phase_host(dev, frames):
+    """Where the slice loop's time per batch goes (``host_breakdown`` of
+    the float32 bgr loop); returns its figures."""
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.pipeline import make_classify_step
+
+    net, _ = load_default_net(dev)
+    out = host_breakdown("host", dev, net, make_classify_step(net), frames)
+    log(f"host: earlier {EARLIER_FPS['loop']} frames/s, step "
+        f"{EARLIER_STEP_MS['host']} ms")
+    return out
 
 
-def trace_loop(tag: str, loop, reps: int) -> None:
+def trace_loop(tag: str, loop, reps: int) -> float | None:
     """Run ``loop`` (``reps`` batches) under ``torch.profiler`` and log the
-    card's busy share and the costliest kernels per batch."""
+    card's busy share and the costliest kernels per batch; return the
+    busy share in percent (None if the trace holds no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -790,7 +871,7 @@ def trace_loop(tag: str, loop, reps: int) -> None:
     if not per_name:
         log(f"{tag}: the trace holds no device kernels; busy share not "
             "measured")
-        return
+        return None
     log(f"{tag}: under torch.profiler, {reps} batches in {traced_ms:.4f} "
         f"ms: kernels {kernel_ms:.4f} ms ({100 * kernel_ms / traced_ms:.1f}%"
         f" busy, from the trace), copies {copy_ms:.4f} ms "
@@ -799,6 +880,7 @@ def trace_loop(tag: str, loop, reps: int) -> None:
     for name, (ms, count) in top:
         log(f"{tag}:   {ms / reps:.4f} ms per batch, {count} launches: "
             f"{name[:100]}")
+    return 100 * kernel_ms / traced_ms
 
 
 def phase_preprocess(dev):
@@ -929,6 +1011,86 @@ def phase_preprocess(dev):
     return launches
 
 
+def yuv420_planes(frames: np.ndarray) -> np.ndarray:
+    """Packed planar YUV420 of uint8 BGR frames (BT.601, limited range,
+    chroma averaged over each 2x2 block): ``[n, yuv420_nbytes(h, w)]``
+    uint8, the layout the native YUV decoder yields."""
+    n, h, w, _ = frames.shape
+    f = frames.astype(np.float32)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+    u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
+    v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
+
+    def sub(c):
+        return c.reshape(n, h // 2, 2, w // 2, 2).mean(axis=(2, 4))
+
+    planes = np.concatenate([y.reshape(n, -1), sub(u).reshape(n, -1),
+                             sub(v).reshape(n, -1)], axis=1)
+    return np.clip(np.rint(planes), 0, 255).astype(np.uint8)
+
+
+def phase_yuv420(dev, frames, host_bgr: dict):
+    """The yuv420 transfer's device loop on the slice stream as packed
+    planes (``yuv420_planes``), at every rung: one ``yuv420_to_bgr``
+    launch a batch ahead of the rung's own, and conf and pred identical
+    to the same loop on the planes converted on the host
+    (``yuv420_to_bgr_np``).  Then ``host_breakdown`` of the float32
+    loop on planes, printed beside the bgr loop's (``host_bgr``).
+    Returns the float32 run's launches."""
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.ops.yuv import yuv420_to_bgr_np
+    from cut_detection_tpu_torch.pipeline import (
+        batch_frames,
+        classify_batches,
+        make_classify_step,
+    )
+
+    planes = yuv420_planes(frames)
+    host = yuv420_to_bgr_np(planes, *MODEL_HW)
+    n = len(planes)
+    out = None
+    for precision in ("float32", "bfloat16", "bfloat16_full", *QUANTIZED):
+        net, _ = load_default_net(dev, precision)
+
+        def run(stream, **opts):
+            return classify_batches(batch_frames(iter(stream), BATCH), net,
+                                    batch_size=BATCH, length=n,
+                                    print_every=0, **opts)
+
+        zero_launches()
+        conf, pred, stats = run(planes, yuv_dims=MODEL_HW)
+        launches = read_launches()
+        check_launches(f"yuv420 {precision}", launches,
+                       per_batch(stats.batches, precision, yuv=True))
+        want_conf, want_pred, _ = run(host)
+        same = (np.array_equal(pred, want_pred)
+                and np.array_equal(conf, want_conf))
+        log(f"yuv420: {precision}, {n} frames as planes in {stats.batches} "
+            f"batches: launches {launches}; conf and pred "
+            f"{'identical to' if same else 'DIFFER from'} the loop on the "
+            "planes converted on the host, classes "
+            f"{np.bincount(pred, minlength=3).tolist()}")
+        if not same:
+            raise AssertionError(f"yuv420 {precision}: the loop on planes "
+                                 "differs from the host-converted loop")
+        if precision == "float32":
+            out = launches
+    net, _ = load_default_net(dev)
+    yuv = host_breakdown("yuv420", dev, net,
+                         make_classify_step(net, yuv_dims=MODEL_HW),
+                         list(planes), yuv_dims=MODEL_HW)
+    for key, unit in (("fps", "frames/s"), ("batch_ms", "ms per batch"),
+                      ("stack", "ms stack"), ("upload", "ms pageable upload"),
+                      ("pinned", "ms pinned upload"), ("step", "ms step"),
+                      ("busy", "% busy")):
+        a, b = yuv[key], host_bgr[key]
+        log(f"yuv420 vs bgr: {unit}: "
+            f"{'not measured' if a is None else f'{a:.4f}'} against "
+            f"{'not measured' if b is None else f'{b:.4f}'}")
+    return out
+
+
 PREPROCESS_FLAGS = ([], ["--device-resize"],
                     ["--device-resize", "--pallas-preprocess"])
 # (clip, reference CSV, frames) of the committed golden clips.
@@ -940,26 +1102,32 @@ GOLDEN_CLIPS = (("clip.mp4", "ref_segments.csv", 220),
 # a class boundary; corpus_nat must be exact at bfloat16_full.
 CORPUS_RUNS = (("corpus_a", 590, 0.99), ("corpus_adv", 593, 0.96),
                ("corpus_nat", 590, 0.99))
+# (clip, frames) of the eval corpus under the yuv420 transfer: the JAX
+# package's gate for it (tests/test_eval_corpus.py:
+# test_yuv420_transfer_holds_accuracy, frame accuracy >= 0.99, boundary
+# precision and recall >= 0.90), at float32 and uint8_chain.
+YUV_CORPUS = (("corpus_a", 590), ("corpus_b", 535), ("corpus_c", 540),
+              ("corpus_nat", 590))
 
 
-def _cli_run(cli_main, video, out, precision, flags):
-    """The CLI's own entry point on ``video``, in this process so that its
-    kernel launches are counted and checked against the path's."""
+def _cli_run(cli_main, video, out, precision, flags, frames,
+             transfer="bgr"):
+    """The CLI's own entry point on ``video`` (``frames`` long), in this
+    process so that its kernel launches are counted and checked against
+    the path's over its ``ceil(frames / BATCH)`` batches.  A ``transfer``
+    other than bgr must take the yuv420 path (``auto`` where the native
+    YUV decoder is built): one ``yuv420_to_bgr`` launch a batch too."""
     zero_launches()
     t0 = time.perf_counter()
-    cli_main([video, "--transfer", "bgr", "--output_path", out,
+    cli_main([video, "--transfer", transfer, "--output_path", out,
               "--print-every", "0", "--precision", precision, *flags])
     wall = time.perf_counter() - t0
     launches = read_launches()
-    per = PATH_LAUNCHES[(precision, "--pallas-preprocess" in flags)]
-    # Every kernel path launches one mid-stack instance a fixed number of
-    # times a batch, and the batches follow from its count; a path with
-    # no kernel (the quantized rungs) must launch none.
-    mids = [inst for inst in per if inst.startswith("conv_block")]
-    batches = max(launches[mids[0]] // per[mids[0]], 1) if mids else 0
-    check_launches(f"{os.path.basename(video)} {precision} {flags}",
-                   launches, per_batch(batches, precision,
-                                       "--pallas-preprocess" in flags))
+    check_launches(f"{os.path.basename(video)} {precision} {transfer} "
+                   f"{flags}", launches,
+                   per_batch(-(-frames // BATCH), precision,
+                             "--pallas-preprocess" in flags,
+                             yuv=transfer != "bgr"))
     return wall, launches
 
 
@@ -996,7 +1164,7 @@ def phase_golden(workdir):
                 ref = os.path.join(GOLDEN, ref)
                 wall, launches = _cli_run(
                     cli_main, os.path.join(GOLDEN, clip), out, precision,
-                    flags + extra)
+                    flags + extra, n)
                 with open(out, "rb") as f, open(ref, "rb") as g:
                     same = f.read() == g.read()
                 acc = evaluate(out, ref, n)["frame_accuracy"]
@@ -1017,7 +1185,7 @@ def phase_golden(workdir):
         out = os.path.join(workdir, name + ".csv")
         wall, launches = _cli_run(
             cli_main, os.path.join(CORPUS, name + ".mp4"), out,
-            precision, extra)
+            precision, extra, n)
         res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
                        n, tolerance=30)
         if name == "corpus_nat" and precision != "bfloat16":
@@ -1033,6 +1201,69 @@ def phase_golden(workdir):
         if not ok:
             raise AssertionError(f"{name} {precision} fails its gate: "
                                  f"{res}")
+    golden_yuv(cli_main, evaluate, workdir, extra)
+
+
+def golden_yuv(cli_main, evaluate, workdir, extra):
+    """The yuv420 transfer through the CLI, where the native decoder has
+    its YUV entry points (the port builds it with ``make -C native`` on
+    first use): ``auto`` must resolve to yuv420 on the card; the golden
+    clips at float32 under ``--transfer yuv420`` and ``auto`` byte for
+    byte, the other rungs on ``clip.mp4`` at frame accuracy >= 0.99
+    against the reference; then ``YUV_CORPUS`` at float32 and
+    ``uint8_chain`` at the JAX package's gates.  Launches are checked in
+    every run (one ``yuv420_to_bgr`` a batch)."""
+    from cut_detection_tpu_torch.data import native_video
+    from cut_detection_tpu_torch.pipeline import resolve_transfer
+
+    if not native_video.yuv_available():
+        log("golden: the native decoder with YUV entry points could not be "
+            "built or loaded here; no yuv420 or auto run made")
+        return
+    auto = resolve_transfer("auto", device=torch.device("cuda"))
+    log(f"golden: native YUV decoder built; --transfer auto resolves to "
+        f"{auto} on this card")
+    if auto != "yuv420":
+        raise AssertionError(f"--transfer auto resolved to {auto} on CUDA "
+                             "with the YUV decoder built")
+    runs = [("float32", transfer, clip) for transfer in ("yuv420", "auto")
+            for clip in GOLDEN_CLIPS]
+    runs += [(p, "yuv420", GOLDEN_CLIPS[0])
+             for p in ("bfloat16", "bfloat16_full", *QUANTIZED)]
+    for precision, transfer, (clip, ref, n) in runs:
+        out = os.path.join(workdir, clip + ".csv")
+        ref = os.path.join(GOLDEN, ref)
+        wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
+                                  precision, extra, n, transfer)
+        with open(out, "rb") as f, open(ref, "rb") as g:
+            same = f.read() == g.read()
+        acc = evaluate(out, ref, n)["frame_accuracy"]
+        log(f"golden: {clip} {precision} --transfer {transfer} -> "
+            f"{'byte-identical to' if same else 'DIFFERS from'} "
+            f"{os.path.basename(ref)}, frame accuracy {acc} ({wall:.1f} s, "
+            f"launches {launches})")
+        if not (same if precision == "float32" else acc >= 0.99):
+            raise AssertionError(f"{clip} {precision} --transfer "
+                                 f"{transfer}: CSV fails its gate")
+    for precision in ("float32", "uint8_chain"):
+        for name, n in YUV_CORPUS:
+            out = os.path.join(workdir, name + ".csv")
+            wall, launches = _cli_run(
+                cli_main, os.path.join(CORPUS, name + ".mp4"), out,
+                precision, extra, n, "yuv420")
+            res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
+                           n, tolerance=30)
+            ok = (res["frame_accuracy"] >= 0.99
+                  and res["boundary_precision"] >= 0.90
+                  and res["boundary_recall"] >= 0.90)
+            log(f"corpus: {name} {precision} --transfer yuv420 -> frame "
+                f"accuracy {res['frame_accuracy']} (gate 0.99), boundary "
+                f"P/R {res['boundary_precision']}/{res['boundary_recall']} "
+                f"(gate 0.9) {'OK' if ok else 'FAIL'} ({wall:.1f} s, "
+                f"launches {launches})")
+            if not ok:
+                raise AssertionError(f"{name} {precision} yuv420 fails its "
+                                     f"gate: {res}")
 
 
 def phase_bench(dev):
@@ -1161,7 +1392,7 @@ def stop_children() -> None:
 
 
 # The kernel instances of the port's paths: (row name, the path whose run
-# gives its launches, source, the Pallas kernel it replaces).
+# gives its launches, source, the TPU kernel (or XLA op) it replaces).
 KERNEL_ROWS = (
     ("conv1_block[f32]", "float32", "cut_detection_tpu_torch/csrc/"
      "conv_block.cu", "cut_detection_tpu/ops/pallas/conv1_kernel.py:97"),
@@ -1189,7 +1420,12 @@ KERNEL_ROWS = (
     ("resize_normalize", "preprocess", "cut_detection_tpu_torch/csrc/"
      "resize_normalize.cu",
      "cut_detection_tpu/ops/pallas/preprocess_kernel.py:74"),
+    ("yuv420_to_bgr", "yuv420", "cut_detection_tpu_torch/csrc/"
+     "yuv420_to_bgr.cu", "cut_detection_tpu/ops/yuv.py:79"),
 )
+# The rows whose ``replaces`` is an op the JAX package leaves to XLA (no
+# Pallas kernel): each row's ``replaces_kind`` says which it is.
+XLA_ROWS = ("yuv420_to_bgr",)
 
 
 def timed(name: str, fn, *args):
@@ -1210,7 +1446,9 @@ def run() -> tuple[str, list[dict]]:
     frames = synthetic_frames(3 * BATCH + 50)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         paths = {"float32": timed("slice", phase_slice, dev, frames, wd)}
-        timed("host", phase_host, dev, frames)
+        host_bgr = timed("host", phase_host, dev, frames)
+        paths["yuv420"] = timed("yuv420", phase_yuv420, dev, frames,
+                                host_bgr)
         paths["preprocess"] = timed("preprocess", phase_preprocess, dev)
         paths.update(timed("precision", phase_precision, dev, frames, wd))
         paths["bench_fused"] = timed("bench_fused", phase_bench, dev)
@@ -1218,8 +1456,9 @@ def run() -> tuple[str, list[dict]]:
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": paths[path][name],
-                     **kres[name]})
+                     "replaces": replaces, "replaces_kind": "xla"
+                     if name in XLA_ROWS else "pallas",
+                     "launches": paths[path][name], **kres[name]})
     return card, rows
 
 

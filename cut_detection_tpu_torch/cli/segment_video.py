@@ -6,15 +6,21 @@ or on the CPU with ``--cpu``; without a CUDA device and without ``--cpu``
 it stops with an error.  ``--device-resize`` decodes at source
 resolution and resizes on the device, bit-exact with cv2;
 ``--pallas-preprocess`` runs the fused resize + flip + /255 kernel there
-instead (float bilinear).  ``--precision`` takes ``float32`` (the
-reference-parity CSVs), ``bfloat16``, ``bfloat16_full``, ``uint8_pool``
-and ``uint8_chain``.  Options of the JAX CLI that the port does not run
-yet are refused when the arguments are parsed, never ignored:
-``--precision int8_mxu``, ``--transfer yuv420``, ``--device-glue`` and
-``--profile``.  ``--transfer auto`` resolves to bgr.
+instead (float bilinear).  ``--transfer yuv420`` uploads packed planar
+YUV420 from the native decoder (1.5 B/px where BGR takes 3) and converts
+it on the device, exactly as swscale does; ``--transfer auto``, the
+default, picks it on CUDA when the native YUV decoder is built and no
+on-device preprocess is asked for, and bgr otherwise (always on the CPU).
+yuv420 resizes in YUV space, so it is held by the accuracy corpus;
+``--transfer bgr`` is the byte-parity path.  ``--precision`` takes
+``float32`` (the reference-parity CSVs), ``bfloat16``, ``bfloat16_full``,
+``uint8_pool`` and ``uint8_chain``.  Options of the JAX CLI that the port
+does not run yet are refused when the arguments are parsed, never
+ignored: ``--precision int8_mxu``, ``--device-glue`` and ``--profile``.
 
     python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
-        --transfer bgr [--device-resize [--pallas-preprocess]] \\
+        [--transfer {auto,bgr,yuv420}] \\
+        [--device-resize [--pallas-preprocess]] \\
         [--precision {float32,bfloat16,bfloat16_full,uint8_pool,uint8_chain}] \\
         [--output_path OUT.csv] [--cpu]
 """
@@ -65,8 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "memory batch ring (auto: on for CUDA).")
     p.add_argument("--transfer", choices=["auto", "bgr", "yuv420"],
                    default="auto",
-                   help="Host->device frame format.  Only bgr is ported; "
-                        "auto resolves to bgr.")
+                   help="Host->device frame format: bgr (uint8 BGR, byte "
+                        "parity), yuv420 (packed planar YUV420 from the "
+                        "native decoder, converted on the device), or "
+                        "auto (yuv420 on CUDA when the native YUV decoder "
+                        "is built and no on-device preprocess is asked "
+                        "for, else bgr).")
     p.add_argument("--device-resize", action="store_true",
                    help="Resize frames on the device (bit-exact cv2 "
                         "emulation) instead of the host.")
@@ -109,8 +119,6 @@ def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
     unported = []
     if ns.precision not in PORTED_PRECISIONS:
         unported.append(f"--precision {ns.precision}")
-    if ns.transfer == "yuv420":
-        unported.append("--transfer yuv420")
     if ns.device_glue:
         unported.append("--device-glue")
     if ns.profile is not None:

@@ -1,8 +1,10 @@
 """Subprocess decode feeding a shared-memory batch ring.
 
 Copy of ``ShmDecodeLoader`` and its child's entry point from
-``cut_detection_tpu/data/shm_loader.py:49, 116`` (the BGR transfer).  The
-decode runs in a spawned process, so the host's upload and the decode
+``cut_detection_tpu/data/shm_loader.py:49, 116``, with both transfers:
+``bgr`` slots hold ``[B, h, w, 3]`` uint8 frames, ``yuv420`` slots
+``[B, yuv420_nbytes(h, w)]`` packed planes from the native YUV decoder.
+The decode runs in a spawned process, so the host's upload and the decode
 overlap whatever the parent does with the interpreter lock.  The child
 decodes straight into a ring of ``slots`` batch-sized uint8 blocks of
 shared memory; the parent yields views of them (or copies, with
@@ -45,7 +47,19 @@ def _producer_main(path: str, kw: dict, shm_names: list, slot_shape: tuple,
     try:
         from cut_detection_tpu_torch.data import video as v
 
-        if kw["decode_workers"] > 1:
+        if kw["transfer"] == "yuv420":
+            if kw["decode_workers"] > 1:
+                src = v.ParallelVideoReader(
+                    path, resize=kw["resize"],
+                    num_threads=kw["decode_workers"],
+                    chunk_frames=kw["decode_chunk_frames"], backend="yuv")
+            else:
+                from cut_detection_tpu_torch.data.native_video import (
+                    NativeYUVSource,
+                )
+
+                src = NativeYUVSource(path, resize=kw["resize"])
+        elif kw["decode_workers"] > 1:
             src = v.ParallelVideoReader(
                 path, resize=kw["resize"], num_threads=kw["decode_workers"],
                 chunk_frames=kw["decode_chunk_frames"],
@@ -108,9 +122,6 @@ class ShmDecodeLoader:
                  transfer: str = "bgr"):
         from cut_detection_tpu_torch.data.video import open_video
 
-        if transfer != "bgr":
-            raise ValueError(f"unsupported transfer mode {transfer!r} "
-                             "(only bgr is ported)")
         if decoder == "auto":
             from cut_detection_tpu_torch.data import native_video
 
@@ -134,7 +145,24 @@ class ShmDecodeLoader:
             except ValueError:
                 slots = 6
         slots = max(2, slots)
-        self._slot_shape = (batch_size, h, w, 3)
+        if transfer == "yuv420":
+            from cut_detection_tpu_torch.data import native_video
+            from cut_detection_tpu_torch.geometry import yuv420_nbytes
+
+            if not native_video.yuv_available():
+                raise RuntimeError(
+                    "transfer='yuv420' needs the native decoder with YUV "
+                    "entry points (make -C native)")
+            if h % 2 or w % 2:
+                raise ValueError(
+                    f"transfer='yuv420' needs even target dims, got {h}x{w} "
+                    "(odd sizes take swscale's interpolating path; use the "
+                    "BGR transfer)")
+            self._slot_shape = (batch_size, yuv420_nbytes(h, w))
+        elif transfer == "bgr":
+            self._slot_shape = (batch_size, h, w, 3)
+        else:
+            raise ValueError(f"unknown transfer mode {transfer!r}")
         self._copy_out = copy_out
         self._closed = False
         self._consumed = False
@@ -153,7 +181,8 @@ class ShmDecodeLoader:
         for i in range(slots):
             self._free.put(i)
         kw = {"resize": resize, "decode_workers": decode_workers,
-              "decode_chunk_frames": decode_chunk_frames, "decoder": decoder}
+              "decode_chunk_frames": decode_chunk_frames, "decoder": decoder,
+              "transfer": transfer}
         # The spawned child inherits os.environ: put the repo on its
         # PYTHONPATH for the spawn window so it imports this package.
         saved = os.environ.get("PYTHONPATH")

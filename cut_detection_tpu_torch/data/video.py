@@ -3,7 +3,7 @@ batching.
 
 Copy of the names the port calls from ``cut_detection_tpu/data/video.py``
 (``open_video`` ``:65``, ``VideoFrameSource`` ``:94``,
-``ParallelVideoReader`` ``:222`` with its cv2 and native backends,
+``ParallelVideoReader`` ``:222`` with its cv2, native and yuv backends,
 ``batch_frames`` ``:567``); reference frameID/data.py:13-31, 184-234.
 
 - Frames stay uint8 BGR HWC on the host; the flip and /255 are folded
@@ -165,6 +165,21 @@ class _NativeChunkDecoder:
         self.src.close()
 
 
+class _YUVChunkDecoder(_NativeChunkDecoder):
+    """Seek/read adapter over the native decoder's planar-YUV420 path.
+
+    ``read()`` yields flat packed-YUV420 vectors already scaled to the
+    target size by the decoder, so the chunk workers apply no host
+    resize; the boundary byte-compare works on the vectors as on BGR
+    frames.
+    """
+
+    def __init__(self, file_path: str, resize: int | None):
+        from cut_detection_tpu_torch.data.native_video import NativeYUVSource
+
+        self.src = NativeYUVSource(file_path, resize=resize)
+
+
 class ParallelVideoReader:
     """Chunk-parallel in-order video decode.
 
@@ -172,9 +187,11 @@ class ParallelVideoReader:
     ``num_threads`` workers each own a private decoder (cv2.VideoCapture or
     the native libav stage, ``backend``), seek to their next chunk's first
     frame, decode it sequentially (resizing on the host when ``resize`` is
-    set), and publish ``(chunk_idx, frames)`` to a bounded queue.  The
-    consumer reassembles chunks in order, so the frame stream is identical
-    to sequential decode for codecs with exact seeking; pass
+    set; ``backend="yuv"`` decodes to packed YUV420 vectors that the
+    decoder has already scaled to the target size), and publish
+    ``(chunk_idx, frames)`` to a bounded queue.  The consumer reassembles
+    chunks in order, so the frame stream is identical to sequential
+    decode for codecs with exact seeking; pass
     ``num_threads=1`` to force the strictly sequential reference behavior.
     """
 
@@ -203,6 +220,15 @@ class ParallelVideoReader:
             probe = NativeVideoSource(file_path)
             self.video_info = probe.video_info
             probe.close()
+        elif backend == "yuv":
+            from cut_detection_tpu_torch.data.native_video import (
+                NativeYUVSource,
+            )
+
+            probe = NativeYUVSource(file_path, resize=resize)
+            self.video_info = probe.video_info
+            self.frame_nbytes = probe.frame_nbytes
+            probe.close()
         else:
             _require_cv2()
             cap, self.video_info = open_video(file_path)
@@ -223,11 +249,12 @@ class ParallelVideoReader:
         self._chunk_lock = threading.Lock()
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
-        if resize is not None:
+        if resize is not None and backend != "yuv":
             self.new_width, self.new_height = reference_resize_dims(
                 self.video_info["width"], self.video_info["height"], resize
             )
         else:
+            # The yuv backend's decoder scales to the target size itself.
             self.new_width = self.new_height = None
 
     def _claim_chunk(self) -> int | None:
@@ -297,6 +324,8 @@ class ParallelVideoReader:
     def _new_decoder(self):
         if self.backend == "native":
             return _NativeChunkDecoder(self.file_path)
+        if self.backend == "yuv":
+            return _YUVChunkDecoder(self.file_path, self.resize)
         return _Cv2ChunkDecoder(self.file_path)
 
     def _redecode_chunk(self, chunk: int, prev_last: np.ndarray):

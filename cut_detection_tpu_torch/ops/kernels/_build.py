@@ -55,6 +55,8 @@ _SIGNATURES = {
     "cutdet_conv_block_cm_f32": [_P] * 6 + [_I] * 5 + [_P],
     # x, row_idx, row_w, col_idx, col_w, out, B, H, W, out_h, out_w, stream
     "cutdet_resize_normalize": [_P] * 6 + [_I] * 5 + [_P],
+    # x, out, B, H, W, stream
+    "cutdet_yuv420_to_bgr": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

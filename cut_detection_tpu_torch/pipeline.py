@@ -1,15 +1,22 @@
 """End-to-end inference pipeline of the port: decode -> classify -> segment
 -> CSV.
 
-Counterpart of ``cut_detection_tpu/pipeline.py`` (the bgr path at every
-precision rung but ``int8_mxu``), mirroring the reference's
+Counterpart of ``cut_detection_tpu/pipeline.py`` (both transfers, at
+every precision rung but ``int8_mxu``), mirroring the reference's
 segment_video.py:20-77:
 
-    decode (host thread or subprocess) -> uint8 NHWC BGR batches ->
-    [device] layer-1 kernel on raw pixels (preprocess folded into its
+    decode (host thread or subprocess) -> uint8 NHWC BGR batches (or
+    packed planar YUV420, ``transfer="yuv420"``) -> [device] YUV -> BGR
+    kernel -> layer-1 kernel on raw pixels (preprocess folded into its
     weights) -> two more block kernels -> pool + FC head -> per-frame
     max / argmax -> one preallocated device score buffer -> one fetch ->
     run-length table -> orphan glue -> adjacent merge -> CSV.
+
+``transfer="auto"`` picks yuv420 on CUDA when the native YUV decoder is
+built and no on-device preprocess is asked for (:func:`resolve_transfer`):
+half the bytes to stack and upload.  The decoder resizes in YUV space
+where the reference resizes BGR, so yuv420 is held by the accuracy
+corpus; ``--transfer bgr`` is the byte-parity path.
 
 With ``device_resize`` the frames decode at source resolution and the
 resize moves onto the device: the bit-exact cv2 emulation
@@ -34,6 +41,8 @@ import weakref
 import numpy as np
 import torch
 
+from cut_detection_tpu_torch.data import native_video
+
 # ``batch_frames`` is also this module's public name for the batching that
 # ``classify_batches`` expects.
 from cut_detection_tpu_torch.data.video import (
@@ -52,6 +61,7 @@ from cut_detection_tpu_torch.models.assembly import (
 from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
     resize_normalize,
 )
+from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import yuv420_to_bgr
 from cut_detection_tpu_torch.ops.preprocess import normalize_frames
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
 from cut_detection_tpu_torch.segmentation.rle import Segmentation
@@ -82,9 +92,15 @@ _STEP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 def make_classify_step(net: GluedNet, *,
                        device_resize: tuple[int, int] | None = None,
-                       pallas_preprocess: bool = False):
+                       pallas_preprocess: bool = False,
+                       yuv_dims: tuple[int, int] | None = None):
     """The device step: uint8 NHWC BGR ``[B, H, W, 3]`` on ``net.device``
     -> ``(conf f32 [B], pred int32 [B])`` on the same device.
+
+    ``yuv_dims=(h, w)``: the frames are packed planar YUV420 vectors
+    ``[B, yuv420_nbytes(h, w)]`` at model resolution, converted to BGR
+    first (``ops.kernels.yuv420_to_bgr``, exact with swscale); it excludes
+    ``device_resize`` and ``pallas_preprocess``.
 
     By default the frames are at model resolution, and the BGR flip and
     /255 are folded into layer 1's weights (``fold_preprocess``), so the
@@ -104,9 +120,15 @@ def make_classify_step(net: GluedNet, *,
     private copy of the net's weights, so later changes to ``net`` do not
     reach it and rings from another net cannot: make a new step instead.
     """
+    if yuv_dims is not None and (device_resize is not None
+                                 or pallas_preprocess):
+        raise ValueError("yuv_dims is mutually exclusive with "
+                         "device_resize/pallas_preprocess")
     if device_resize is not None:
         device_resize = tuple(int(d) for d in device_resize)
-    key = (device_resize, bool(pallas_preprocess))
+    if yuv_dims is not None:
+        yuv_dims = tuple(int(d) for d in yuv_dims)
+    key = (device_resize, bool(pallas_preprocess), yuv_dims)
     per_net = _STEP_CACHE.get(net)
     if per_net is not None and key in per_net:
         return per_net[key]
@@ -123,6 +145,8 @@ def make_classify_step(net: GluedNet, *,
     @torch.inference_mode()
     def step(frames_u8: torch.Tensor):
         x = frames_u8
+        if yuv_dims is not None:
+            x = yuv420_to_bgr(x.contiguous(), *yuv_dims)
         if device_resize is not None and pallas_preprocess:
             x = resize_normalize(x.contiguous(), *device_resize)
         else:
@@ -139,18 +163,31 @@ def make_classify_step(net: GluedNet, *,
     return step
 
 
-def resolve_transfer(transfer: str = "auto") -> str:
-    """Resolve ``transfer`` ("auto"/"bgr"/"yuv420").
+def resolve_transfer(transfer: str = "auto", *,
+                     device: torch.device | None = None,
+                     on_device_preprocess: bool = False) -> str:
+    """Resolve ``transfer`` ("auto"/"bgr"/"yuv420"), by the JAX package's
+    rules (``cut_detection_tpu/pipeline.py:278``).
 
-    Only the bgr upload is ported, so "auto" resolves to "bgr" and
-    "yuv420" raises.
+    "auto" is yuv420, the 1.5 B/px planar upload converted on the card,
+    exactly when it can run and pays: the model runs on CUDA (on the CPU
+    there is no upload to halve, and bgr keeps byte parity), the native
+    decoder has its YUV entry points, and no on-device preprocess is
+    asked for (that needs BGR frames at source resolution).  Everything
+    else is bgr.  An explicit "yuv420" without the YUV decoder raises.
+    The odd-target fallback to bgr is per video (:func:`classify_video`).
     """
-    if transfer in ("auto", "bgr"):
-        return "bgr"
-    if transfer == "yuv420":
-        raise NotImplementedError(
-            "transfer 'yuv420' is not yet ported, see ROADMAP.md")
-    raise ValueError(f"unknown transfer mode {transfer!r}")
+    if transfer == "auto":
+        if (on_device_preprocess or device is None
+                or device.type != "cuda" or not native_video.yuv_available()):
+            return "bgr"
+        return "yuv420"
+    if transfer == "yuv420" and not native_video.yuv_available():
+        raise RuntimeError("transfer='yuv420' needs the native decoder with "
+                           "YUV entry points (make -C native)")
+    if transfer not in ("bgr", "yuv420"):
+        raise ValueError(f"unknown transfer mode {transfer!r}")
+    return transfer
 
 
 def _resolve_decode_process(decode_process, device: torch.device) -> bool:
@@ -172,30 +209,44 @@ def available_decoder() -> str | None:
         return "cv2"
     except ImportError:
         pass
-    from cut_detection_tpu_torch.data import native_video
-
     return "native" if native_video.available() else None
 
 
 def _make_source(input_path: str, *, resize: int | None,
-                 decode_workers: int, decoder: str):
+                 decode_workers: int, decoder: str, transfer: str = "bgr"):
     """The in-process decode source (cv2 or the native libav decoder);
-    ``resize=None`` yields frames at source resolution."""
-    if decoder == "auto":
-        from cut_detection_tpu_torch.data import native_video
-
+    ``resize=None`` yields frames at source resolution.  ``yuv420``
+    decodes to packed planes at the target size with the native YUV
+    decoder, whatever ``decoder`` says."""
+    if transfer == "yuv420":
+        decoder = "yuv"
+    elif decoder == "auto":
         decoder = "native" if native_video.available() else "cv2"
     if decode_workers > 1:
         return ParallelVideoReader(
             input_path, resize=resize, num_threads=decode_workers,
             chunk_frames=DECODE_CHUNK_FRAMES, backend=decoder)
+    if decoder == "yuv":
+        return native_video.NativeYUVSource(input_path, resize=resize)
     if decoder == "native":
-        from cut_detection_tpu_torch.data.native_video import (
-            NativeVideoSource,
-        )
-
-        return NativeVideoSource(input_path, resize=resize)
+        return native_video.NativeVideoSource(input_path, resize=resize)
     return VideoFrameSource(input_path, resize=resize)
+
+
+def _video_info(input_path: str) -> dict:
+    """The video's info dict: cv2's, as the JAX pipeline reads it, or the
+    native decoder's where cv2 is missing."""
+    from cut_detection_tpu_torch.data import video
+
+    if video.cv2 is not None:
+        cap, info = video.open_video(input_path)
+        cap.release()
+        return info
+    src = native_video.NativeVideoSource(input_path)
+    try:
+        return src.video_info
+    finally:
+        src.close()
 
 
 def _load_cached(cache_path: str, frame_limit, batch_size: int):
@@ -252,6 +303,13 @@ def classify_video(
     With ``device_resize`` or ``pallas_preprocess`` the frames decode at
     source resolution and are resized on the device to the reference's
     size (width 256); see :func:`make_classify_step`.
+
+    ``transfer`` ("auto", "bgr" or "yuv420", :func:`resolve_transfer`):
+    under yuv420 the native decoder scales each frame to the target size
+    in YUV space and the packed planes (1.5 B/px) cross to the device,
+    which converts them to BGR exactly as swscale does.  An odd target
+    size falls back to bgr with a warning (swscale interpolates the
+    chroma there, which the conversion does not reproduce).
     """
     if cache_path and os.path.isfile(cache_path):
         cached = _load_cached(cache_path, frame_limit, batch_size)
@@ -271,10 +329,22 @@ def classify_video(
         raise ValueError(
             "transfer='yuv420' can't combine with on-device resize "
             "(YUV frames arrive at model resolution already)")
-    if transfer == "auto":
-        logger.info("transfer=auto resolved to bgr (yuv420 is not yet "
-                    "ported)")
-    transfer = resolve_transfer(transfer)
+    asked = transfer
+    transfer = resolve_transfer(transfer, device=device,
+                                on_device_preprocess=on_device_preprocess)
+    if asked == "auto":
+        logger.info("transfer=auto resolved to %s", transfer)
+    yuv_dims = None
+    if transfer == "yuv420":
+        info = _video_info(input_path)
+        tw, th = reference_resize_dims(info["width"], info["height"], RESIZE)
+        if th % 2 or tw % 2:
+            logger.warning(
+                "transfer='yuv420' needs even target dims; %dx%d is odd — "
+                "falling back to the BGR transfer", th, tw)
+            transfer = "bgr"
+        else:
+            yuv_dims = (th, tw)
 
     resize = None if on_device_preprocess else RESIZE
     if _resolve_decode_process(decode_process, device):
@@ -293,7 +363,8 @@ def classify_video(
         from cut_detection_tpu_torch.data.loader import PrefetchLoader
 
         source = _make_source(input_path, resize=resize,
-                              decode_workers=decode_workers, decoder=decoder)
+                              decode_workers=decode_workers, decoder=decoder,
+                              transfer=transfer)
         batches = PrefetchLoader(batch_frames(source, batch_size),
                                  depth=PREFETCH_BATCHES)
 
@@ -307,7 +378,7 @@ def classify_video(
         batches, net, batch_size=batch_size,
         length=int(source.video_info["length"]), frame_limit=frame_limit,
         print_every=print_every, device_resize=dr,
-        pallas_preprocess=pallas_preprocess)
+        pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims)
     stats.decode_failures = getattr(source, "frames_failed", 0)
 
     if cache_path:
@@ -327,16 +398,18 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
                      print_every: int = 50,
                      device_resize: tuple[int, int] | None = None,
                      pallas_preprocess: bool = False,
+                     yuv_dims: tuple[int, int] | None = None,
                      ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """The device loop of :func:`classify_video` over decoded batches.
 
     ``batches`` yields ``(uint8 [batch_size, H, W, 3] BGR, valid)`` as
-    ``data.video.batch_frames`` does; ``length`` (the
-    expected frame count) sizes the device score buffer.  The batches'
-    ``close()``, when they have one, runs on exit.  ``device_resize`` and
-    ``pallas_preprocess`` choose the step (:func:`make_classify_step`),
-    which runs at ``net.precision``.  Returns the valid frames' ``(conf,
-    pred, stats)``.
+    ``data.video.batch_frames`` does (``[batch_size, yuv420_nbytes(h,
+    w)]`` planes with ``yuv_dims=(h, w)``); ``length`` (the expected
+    frame count) sizes the device score buffer.  The batches' ``close()``,
+    when they have one, runs on exit.  ``device_resize``,
+    ``pallas_preprocess`` and ``yuv_dims`` choose the step
+    (:func:`make_classify_step`), which runs at ``net.precision``.
+    Returns the valid frames' ``(conf, pred, stats)``.
     """
     device = net.device
     meter = ThroughputMeter(warmup_items=batch_size)
@@ -345,7 +418,8 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     stats = PipelineStats()
     try:
         step = make_classify_step(net, device_resize=device_resize,
-                                  pallas_preprocess=pallas_preprocess)
+                                  pallas_preprocess=pallas_preprocess,
+                                  yuv_dims=yuv_dims)
         # One score buffer on the device, sized from the expected frame
         # count (doubled whenever a container under-reports it).
         n_batches = max(1, -(-length // batch_size))

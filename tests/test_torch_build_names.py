@@ -8,7 +8,10 @@ every bound name (and ``cutdet_error_string``) is defined exactly once,
 with as many parameters as its binding passes, whether written out or
 through a macro such as ``CUTDET_CONV_BLOCK(NAME, ...)``.  They also
 hold ``chip_smoke.KERNEL_ROWS`` to the tree: each row's source exists and
-its ``replaces`` names the ``def`` line of a Pallas kernel.
+its ``replaces`` names the ``def`` line of a Pallas kernel (a function of
+``cut_detection_tpu/ops/pallas/`` whose module calls ``pl.pallas_call``)
+or, for a row of ``chip_smoke.XLA_ROWS``, the ``def`` of the op the JAX
+package leaves to XLA (outside ``ops/pallas/``, no ``pallas_call``).
 """
 
 import glob
@@ -83,5 +86,13 @@ def test_kernel_row_source_exists(row):
 def test_kernel_row_replaces_a_def(row):
     path, line = row[3].rsplit(":", 1)
     with open(os.path.join(ROOT, path)) as f:
-        text = f.read().splitlines()[int(line) - 1]
+        source = f.read()
+    text = source.splitlines()[int(line) - 1]
     assert text.startswith("def "), f"{row[3]} is {text!r}"
+    pallas = path.startswith("cut_detection_tpu/ops/pallas/") and \
+        "pallas_call" in source
+    assert pallas != (row[0] in chip_smoke.XLA_ROWS), row
+
+
+def test_xla_rows_are_kernel_rows():
+    assert set(chip_smoke.XLA_ROWS) <= {r[0] for r in chip_smoke.KERNEL_ROWS}

@@ -5,13 +5,18 @@ The port imports nothing of ``cut_detection_tpu`` (``test_torch_imports``
 checks that), so it keeps copies, under the same relative paths, of what
 it calls: ``config``, ``checkpoint.io``, ``geometry`` (held by
 ``tests/test_torch_preprocess.py``), ``utils.logging``,
-``utils.profiling``, ``native``, ``data.video``, ``data.native_video``,
-``data.loader``, ``data.shm_loader`` and ``cli.evaluate``.  The prod
+``utils.profiling``, ``native``, ``data.video`` (with the yuv backend of
+``ParallelVideoReader``), ``data.native_video`` (``NativeVideoSource``,
+``NativeYUVSource``, ``yuv420_to_bgr24_host``), ``data.loader``,
+``data.shm_loader`` (both transfers) and ``cli.evaluate``.  The prod
 classifier's files are read by path from the JAX package's directory.
 """
 
 import logging
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -122,8 +127,10 @@ def test_decoded_frames_match(clip, resize):
 def test_native_decoder_matches():
     """The native libav decoder through the port's bindings, sequential
     and after a seek, against the JAX package's.  On ``clip.mp4`` only:
-    the library itself corrupts the heap decoding ``clip_odd.mp4``'s
-    426-pixel-wide frames, through either package's bindings."""
+    the JAX package's binding hands the library a buffer exactly as long
+    as a BGR frame, which swscale overruns on ``clip_odd.mp4``'s
+    426-pixel-wide rows (heap corruption, then an abort).  The port's
+    binding pads its buffers (``test_native_bgr_decode_of_unaligned_rows``)."""
     if not (native_video.available() and jax_native_video.available()):
         pytest.skip("native decoder not built")
     path = os.path.join(GOLDEN, "clip.mp4")
@@ -139,6 +146,85 @@ def test_native_decoder_matches():
     np.testing.assert_array_equal(next(ours), next(theirs))
     ours.close()
     theirs.close()
+
+
+def test_native_bgr_decode_of_unaligned_rows():
+    """``clip_odd.mp4`` (426x240: BGR rows of 1278 bytes) through the
+    port's ``NativeVideoSource``, in a subprocess because an overrun
+    aborts the interpreter: at ``resize=None`` and ``resize=256`` its 200
+    frames, and the frames from a seek to 37 on, equal cv2's
+    (``VideoFrameSource``) byte for byte, and the process exits 0."""
+    if not native_video.available():
+        pytest.skip("native decoder not built")
+    clip = os.path.join(GOLDEN, "clip_odd.mp4")
+    code = textwrap.dedent(f"""
+        import numpy as np
+        from cut_detection_tpu_torch.data.native_video import (
+            NativeVideoSource)
+        from cut_detection_tpu_torch.data.video import VideoFrameSource
+        for resize in (None, 256):
+            ours = np.stack(list(NativeVideoSource({clip!r}, resize)))
+            cv = np.stack(list(VideoFrameSource({clip!r}, resize)))
+            assert ours.shape[0] == cv.shape[0] == 200, ours.shape
+            assert np.array_equal(ours, cv), resize
+            src = NativeVideoSource({clip!r}, resize)
+            src.seek(37)
+            assert np.array_equal(np.stack(list(src)), cv[37:]), resize
+            assert src.frames_failed == 0
+            print("ok", resize, flush=True)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["ok", "None", "ok", "256"]
+
+
+@pytest.mark.parametrize("clip", CLIPS)
+def test_native_yuv_source_matches(clip):
+    """``NativeYUVSource`` through the port's binding, sequential and
+    after a seek, against the JAX package's: the same vectors byte for
+    byte (the YUV entries decode ``clip_odd.mp4`` through either)."""
+    if not (native_video.yuv_available()
+            and jax_native_video.yuv_available()):
+        pytest.skip("native decoder with YUV entry points not built")
+    path = os.path.join(GOLDEN, clip)
+    ours = native_video.NativeYUVSource(path, resize=256)
+    theirs = jax_native_video.NativeYUVSource(path, resize=256)
+    assert ours.video_info == theirs.video_info
+    assert (ours.out_width, ours.out_height, ours.frame_nbytes) == (
+        theirs.out_width, theirs.out_height, theirs.frame_nbytes)
+    a, b = np.stack(list(ours)), np.stack(list(theirs))
+    assert a.shape[0] == ours.video_info["length"]
+    np.testing.assert_array_equal(a, b)
+    assert ours.frames_failed == theirs.frames_failed == 0
+    ours = native_video.NativeYUVSource(path, resize=None)
+    theirs = jax_native_video.NativeYUVSource(path, resize=None)
+    ours.seek(37)
+    theirs.seek(37)
+    np.testing.assert_array_equal(next(ours), next(theirs))
+    ours.close()
+    theirs.close()
+
+
+def test_yuv_parallel_reader_matches():
+    """``ParallelVideoReader(backend="yuv")`` (3 threads, 64-frame chunks)
+    against the JAX package's, batched the same way."""
+    if not native_video.yuv_available():
+        pytest.skip("native decoder with YUV entry points not built")
+    path = os.path.join(GOLDEN, "clip.mp4")
+    ours = video.ParallelVideoReader(path, resize=256, num_threads=3,
+                                     chunk_frames=64, backend="yuv")
+    theirs = jax_video.ParallelVideoReader(path, resize=256, num_threads=3,
+                                           chunk_frames=64, backend="yuv")
+    assert ours.video_info == theirs.video_info
+    assert ours.frame_nbytes == theirs.frame_nbytes
+    a = list(video.batch_frames(ours, 64))
+    b = list(jax_video.batch_frames(theirs, 64))
+    assert len(a) == len(b) == 4
+    for (xa, va), (xb, vb) in zip(a, b):
+        assert va == vb
+        np.testing.assert_array_equal(xa, xb)
+    assert ours.frames_failed == theirs.frames_failed == 0
 
 
 def test_native_library_matches():
@@ -190,21 +276,30 @@ def test_prefetch_loader_matches():
 
 def test_shm_loader_matches():
     """The decode subprocess's batches (copies, as on the CPU) equal the
-    JAX package's, 64 frames at a time, and it reports the same video."""
+    JAX package's, 64 frames at a time, and it reports the same video:
+    BGR frames, and the yuv420 ring's packed planes (where the native YUV
+    decoder is built)."""
     path = os.path.join(GOLDEN, "clip_odd.mp4")
-    ours = shm_loader.ShmDecodeLoader(path, batch_size=64, copy_out=True)
-    a = list(ours)
-    theirs = jax_shm.ShmDecodeLoader(path, batch_size=64, copy_out=True)
-    b = list(theirs)
-    assert ours.video_info == theirs.video_info
-    assert ours.frame_hw == theirs.frame_hw == (144, 256)
-    assert len(a) == len(b) == 4
-    for (xa, va), (xb, vb) in zip(a, b):
-        assert va == vb
-        np.testing.assert_array_equal(xa, xb)
-    assert ours.frames_failed == theirs.frames_failed == 0
-    with pytest.raises(ValueError, match="only bgr"):
-        shm_loader.ShmDecodeLoader(path, transfer="yuv420")
+    transfers = ["bgr"] + (["yuv420"] if native_video.yuv_available()
+                           else [])
+    for transfer in transfers:
+        ours = shm_loader.ShmDecodeLoader(path, batch_size=64, copy_out=True,
+                                          transfer=transfer)
+        a = list(ours)
+        theirs = jax_shm.ShmDecodeLoader(path, batch_size=64, copy_out=True,
+                                         transfer=transfer)
+        b = list(theirs)
+        assert ours.video_info == theirs.video_info
+        assert ours.frame_hw == theirs.frame_hw == (144, 256)
+        assert len(a) == len(b) == 4
+        assert a[0][0].shape == ((64, 144, 256, 3) if transfer == "bgr"
+                                 else (64, 144 * 256 * 3 // 2)), transfer
+        for (xa, va), (xb, vb) in zip(a, b):
+            assert va == vb
+            np.testing.assert_array_equal(xa, xb)
+        assert ours.frames_failed == theirs.frames_failed == 0
+    with pytest.raises(ValueError, match="unknown transfer"):
+        shm_loader.ShmDecodeLoader(path, transfer="rgb")
 
 
 @pytest.mark.parametrize("name", ["corpus_a", "corpus_adv", "corpus_nat"])

@@ -16,7 +16,9 @@ one bf16 ulp of the pooled activation, since summation order may move a
 value across a bf16 rounding boundary, plus one ulp of a bf16 output's
 own rounding, and such crossings on at most 0.1% of the elements; 1e-5
 for the resize + normalize kernel on outputs in [0, 1] (two-tap sums
-against the plain version's dense matmuls).  The slice at the bf16 rungs:
+against the plain version's dense matmuls); 0 for the YUV -> BGR kernel
+(integer arithmetic) and for the yuv420 step against the step on the
+same planes converted on the host.  The slice at the bf16 rungs:
 identical classes, conf within 2e-2 — such crossings, where a bf16
 activation or a bf16-rounded layer input lands one ulp apart, move logits
 by a few 1e-3 (6.3e-3 at most on ``chip_smoke.py``'s slice stream).
@@ -61,8 +63,18 @@ from cut_detection_tpu_torch.ops.kernels.tolerance import (
     bf16_check,
     xla_check,
 )
+from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import (
+    yuv420_to_bgr,
+    yuv420_to_bgr_plain,
+)
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
-from cut_detection_tpu_torch.pipeline import batch_frames, classify_batches
+from cut_detection_tpu_torch.ops.yuv import yuv420_to_bgr_np
+from cut_detection_tpu_torch.geometry import yuv420_nbytes
+from cut_detection_tpu_torch.pipeline import (
+    batch_frames,
+    classify_batches,
+    make_classify_step,
+)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 T = torch.from_numpy
@@ -338,6 +350,71 @@ def test_resize_normalize_kernel(cuda_dev, in_h, in_w, out_h, out_w):
                                rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,h,w", [(128, 144, 256), (3, 2, 2),
+                                   (5, 146, 254)])
+def test_yuv420_to_bgr_kernel(cuda_dev, b, h, w):
+    """The kernel equals its plain version exactly, one launch."""
+    x = T(np.random.default_rng(h * w).integers(
+        0, 256, (b, yuv420_nbytes(h, w)), dtype=np.uint8)).to(cuda_dev)
+    n = yuv420_to_bgr.launches
+    got = yuv420_to_bgr(x, h, w)
+    torch.cuda.synchronize()
+    assert yuv420_to_bgr.launches == n + 1
+    assert got.shape == (b, h, w, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, yuv420_to_bgr_plain(x, h, w))
+    assert torch.equal(got.cpu(), yuv420_to_bgr_plain(x.cpu(), h, w))
+
+
+def test_yuv420_to_bgr_kernel_refuses_bad_input(cuda_dev):
+    n = yuv420_to_bgr.launches
+    for h, w in ((145, 256), (144, 255)):
+        x = torch.zeros((2, yuv420_nbytes(h, w)), dtype=torch.uint8,
+                        device=cuda_dev)
+        with pytest.raises(ValueError, match="even dims"):
+            yuv420_to_bgr(x, h, w)
+    good = torch.zeros((2, yuv420_nbytes(4, 4)), dtype=torch.uint8,
+                       device=cuda_dev)
+    with pytest.raises(TypeError):
+        yuv420_to_bgr(good.int(), 4, 4)
+    with pytest.raises(ValueError):
+        yuv420_to_bgr(good[:, :-2], 4, 4)
+    assert yuv420_to_bgr.launches == n
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16",
+                                       "bfloat16_full", "uint8_pool",
+                                       "uint8_chain"])
+def test_yuv_loop_on_card_equals_host_converted(cuda_dev, precision):
+    """The device loop on YUV batches equals the same loop on the batches
+    converted on the host, exactly, with one YUV -> BGR launch a batch;
+    at float32 it also agrees with the CPU within 1e-4."""
+    rng = np.random.default_rng(9)
+    planes = rng.integers(0, 256, (40, yuv420_nbytes(144, 256)),
+                          dtype=np.uint8)
+    bgr = yuv420_to_bgr_np(planes, 144, 256)
+    net, _ = load_default_net(cuda_dev, precision)
+
+    def run(stream, net=net, **opts):
+        return classify_batches(batch_frames(iter(stream), 16), net,
+                                batch_size=16, length=40, print_every=0,
+                                **opts)
+
+    n = yuv420_to_bgr.launches
+    conf, pred, stats = run(planes, yuv_dims=(144, 256))
+    assert stats.batches == 3 and yuv420_to_bgr.launches == n + 3
+    want_conf, want_pred, _ = run(bgr)
+    np.testing.assert_array_equal(pred, want_pred)
+    np.testing.assert_array_equal(conf, want_conf)
+    if precision == "float32":
+        cpu_conf, cpu_pred, _ = run(planes, load_default_net("cpu")[0],
+                                    yuv_dims=(144, 256))
+        np.testing.assert_array_equal(pred, cpu_pred)
+        np.testing.assert_allclose(conf, cpu_conf, rtol=0, atol=1e-4)
+    step = make_classify_step(net, yuv_dims=(144, 256))
+    step(T(planes[:16]).to(cuda_dev))
+    assert yuv420_to_bgr.launches == n + 4
+
+
 def test_exact_resize_on_card_matches_cpu(cuda_dev):
     """The int32 cv2 emulation gives the same bytes on the card."""
     x = T(np.random.default_rng(2).integers(0, 256, (4, 720, 1280, 3),
@@ -563,5 +640,29 @@ def test_cli_on_card_matches_golden_csv(cuda_dev, tmp_path, clip, ref,
     out = str(tmp_path / "out.csv")
     main([os.path.join(GOLDEN, clip), "--transfer", "bgr", "--output_path",
           out, "--print-every", "0", *flags])
+    with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("transfer", ["yuv420", "auto"])
+@pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
+                                      ("clip_odd.mp4",
+                                       "ref_segments_odd.csv")])
+def test_cli_yuv420_on_card_matches_golden_csv(cuda_dev, tmp_path, clip, ref,
+                                               transfer):
+    """The golden clips under ``--transfer yuv420`` and ``auto`` (which
+    resolves to yuv420 on the card with the native YUV decoder) give the
+    reference CSVs at float32, through the YUV -> BGR kernel."""
+    from cut_detection_tpu_torch.data import native_video
+
+    if not native_video.yuv_available():
+        pytest.skip("native decoder with YUV entry points not built")
+    from cut_detection_tpu_torch.cli.segment_video import main
+
+    out = str(tmp_path / "out.csv")
+    n = yuv420_to_bgr.launches
+    main([os.path.join(GOLDEN, clip), "--transfer", transfer,
+          "--output_path", out, "--print-every", "0"])
+    assert yuv420_to_bgr.launches == n + 2  # 200-220 frames, batch 128
     with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
         assert f.read() == g.read()

@@ -113,3 +113,28 @@ def test_port_imports_and_runs_without_jax(tmp_path, decode_process):
     with open(out, "rb") as f, open(os.path.join(
             REPO, "tests", "golden", "ref_segments.csv"), "rb") as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("decode_process", ["off", "on"])
+def test_yuv420_transfer_runs_without_jax(tmp_path, decode_process):
+    """``--transfer yuv420`` with jax and the JAX package blocked: the
+    native YUV decoder in-process and in the spawned decode child, the
+    conversion, and the golden clip's CSV byte for byte."""
+    from cut_detection_tpu_torch.data import native_video
+
+    if not native_video.yuv_available():
+        pytest.skip("native decoder with YUV entry points not built")
+    out = str(tmp_path / "out.csv")
+    clip = os.path.join(REPO, "tests", "golden", "clip.mp4")
+    proc = _run(f"""
+        from cut_detection_tpu_torch.cli.segment_video import main
+        main([{clip!r}, "--cpu", "--transfer", "yuv420", "--output_path",
+              {out!r}, "--print-every", "0",
+              "--decode-process", {decode_process!r}])
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    with open(out, "rb") as f, open(os.path.join(
+            REPO, "tests", "golden", "ref_segments.csv"), "rb") as g:
+        assert f.read() == g.read()

@@ -263,10 +263,26 @@ def test_glue_and_csv_match_jax(tmp_path, seed):
     assert _read(tmp_path / "a.csv") == _read(tmp_path / "b.csv")
 
 
-def test_transfer_and_decode_process_resolution():
-    assert resolve_transfer("auto") == resolve_transfer("bgr") == "bgr"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resolve_transfer("yuv420")
+def test_transfer_and_decode_process_resolution(monkeypatch):
+    """``auto`` is yuv420 exactly on CUDA with the YUV decoder and no
+    on-device preprocess, as the JAX package's rules have it on an
+    accelerator; an explicit yuv420 without the decoder raises."""
+    from cut_detection_tpu_torch.data import native_video
+
+    cuda = torch.device("cuda")
+    for yuv_built in (True, False):
+        monkeypatch.setattr(native_video, "yuv_available", lambda: yuv_built)
+        assert resolve_transfer("auto", device=cuda) == (
+            "yuv420" if yuv_built else "bgr")
+        for kw in ({"device": CPU}, {},
+                   {"device": cuda, "on_device_preprocess": True}):
+            assert resolve_transfer("auto", **kw) == "bgr", kw
+        assert resolve_transfer("bgr", device=cuda) == "bgr"
+        if yuv_built:
+            assert resolve_transfer("yuv420", device=CPU) == "yuv420"
+        else:
+            with pytest.raises(RuntimeError, match="YUV entry points"):
+                resolve_transfer("yuv420", device=cuda)
     with pytest.raises(ValueError):
         resolve_transfer("rgb")
     assert _resolve_decode_process("auto", torch.device("cuda")) is True
@@ -290,14 +306,32 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--precision", "int8_mxu"], ["--transfer", "yuv420"], ["--device-glue"],
-    ["--profile", "trace_dir"],
+    ["--precision", "int8_mxu"], ["--device-glue"], ["--profile", "trace_dir"],
 ])
 def test_cli_refuses_unported_flags(capsys, flags):
     with pytest.raises(SystemExit) as exc:
         cli.main(["clip.mp4", "--cpu", *flags])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
+                                      ("clip_odd.mp4",
+                                       "ref_segments_odd.csv")])
+def test_cli_transfer_yuv420_matches_golden_and_jax_csv(tmp_path, clip, ref):
+    """``--cpu --transfer yuv420`` (the native YUV decoder, the conversion
+    on the device, float32) writes the reference CSV, and the JAX
+    pipeline's under ``transfer="yuv420"``, byte for byte."""
+    from cut_detection_tpu_torch.data import native_video
+
+    if not native_video.yuv_available():
+        pytest.skip("native decoder with YUV entry points not built")
+    out, theirs = str(tmp_path / "out.csv"), str(tmp_path / "jax.csv")
+    cli.main([os.path.join(GOLDEN, clip), "--cpu", "--transfer", "yuv420",
+              "--output_path", out, "--print-every", "0"])
+    jax_segment(os.path.join(GOLDEN, clip), theirs, print_every=0,
+                transfer="yuv420")
+    assert _read(out) == _read(os.path.join(GOLDEN, ref)) == _read(theirs)
 
 
 @pytest.mark.parametrize("flag", ["--device-resize", "--pallas-preprocess"])
