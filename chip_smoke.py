@@ -29,7 +29,12 @@ Phases, each of which raises on failure:
              normalize kernel at 1280x720 -> 256x144, the YUV -> BGR
              kernel on a seeded batch of 128 planes at 144x256 (max
              diff 0) and on the exhaustive 2^24 (Y, U, V) probe against
-             the host's numpy twin;
+             the host's numpy twin, the int8 blocks of ``int8_mxu``
+             (layer 1 on raw pixels at 144x256, the mid-stack block at
+             48x85 on layer 1's codes and at 16x28 on layer 2's, the
+             prod net's weights and rings; max diff 0; the library's
+             yardstick is cuDNN's f32 convolution of the same integer
+             values, TF32 off: PyTorch has no int8 convolution on CUDA);
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -52,14 +57,17 @@ Phases, each of which raises on failure:
              the resizes and the steps, and each loop's busy share from
              a trace;
 7. precision — the slice stream at ``--precision bfloat16``,
-             ``bfloat16_full``, ``uint8_pool`` and ``uint8_chain``: card
-             against CPU (identical classes, confidences within 2e-2 at
-             the bf16 rungs and ``QUANT_CONF_TOL`` at the quantized
-             ones), launches by instance (the ``bf16_xla`` instances at
-             ``bfloat16_full``; none at the quantized rungs, which are
-             plain PyTorch), each rung's step
-             on a resident batch beside float32's, and each rung's loop
-             frames/s;
+             ``bfloat16_full``, ``uint8_pool``, ``uint8_chain`` and
+             ``int8_mxu``: card against CPU (identical classes,
+             confidences within 2e-2 at the bf16 rungs and
+             ``QUANT_CONF_TOL`` at the quantized ones), launches by
+             instance (the ``bf16_xla`` instances at ``bfloat16_full``;
+             none at ``uint8_pool`` and ``uint8_chain``, which are plain
+             PyTorch; at ``int8_mxu`` ``conv1_block[i8]`` once and
+             ``conv_block[i8]`` twice a batch and nothing else), each
+             rung's step on a resident batch beside float32's, each
+             rung's loop frames/s, and the quantized rungs' busy share
+             from a trace;
 8. bench_fused — the port's ``bench_fused_conv1`` entry point at batch
              128: K1 -> K4 -> K4 -> head must equal K1 -> K3 -> K3 ->
              head exactly; stage ``block`` with the launch counts read
@@ -78,14 +86,23 @@ Phases, each of which raises on failure:
              quantized rung the default on both clips, byte for byte;
              then the labelled eval-corpus clips at both bf16 rungs and
              ``corpus_a`` and ``corpus_nat`` at both quantized rungs,
-             held to the JAX package's gates.  Where the native
+             held to the JAX package's gates, and ``corpus_adv`` too at
+             ``int8_mxu``; ``--device-glue`` at float32 on both golden
+             clips (the host glue's bytes, the reference's) and
+             ``--profile DIR`` on ``clip.mp4`` (a trace file holding the
+             card's kernels, the same bytes).  Where the native
              decoder has its YUV entry points: ``--transfer auto`` must
              resolve to yuv420; the golden clips at float32 under
              ``--transfer yuv420`` and ``auto`` byte for byte, the other
              rungs under yuv420 on ``clip.mp4`` at frame accuracy >=
              0.99, and corpus a, b, c and nat at float32 and
              ``uint8_chain`` under yuv420 at the JAX gates.  Kernel
-             launches are counted by instance in every run.
+             launches are counted by instance in every run;
+10. device_glue — the segment smoother on the card
+             (``segmentation.device_glue``) on a seeded 324,000-frame
+             score vector (a 3-hour game at 30 fps) against the host
+             glue on the same vector: the same segments (means within
+             1e-5), each one's time and the card's loop iterations.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -125,7 +142,9 @@ BENCH_XLA_TOL = 5e-2    # K1 -> K4 -> K4 (the Pallas kernels' numerics)
 QUANT_CONF_TOL = 2e-2   # the slice at the quantized rungs, card vs CPU: a
                         # conv output a bf16 ulp apart (cuDNN's summation
                         # order against the CPU's) moves a uint8 code by 1
-                        # (7.9e-3 at most measured on this stream)
+                        # (7.9e-3 at most measured on this stream); at
+                        # int8_mxu the rings are such a bf16 conv
+GAME_FRAMES = 324_000   # a 3-hour game at 30 fps, for the smoother
 BENCH_STEPS = 3         # calls per timed loop of the bench_fused phase
 # H100 SXM peaks (NVIDIA's data sheet, dense): the least time of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -152,7 +171,7 @@ EARLIER_FPS = {"loop": 39875.9, "float32": 31629.0, "bfloat16": 32075.7,
                "e2e_xla": 151183.0, "e2e_allfused": 109213.0,
                "e2e_u8mid": 17162.4, "e2e_chain": 13970.0}
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 SRC_HW = (720, 1280)    # source frames of the preprocess paths
 MODEL_HW = (144, 256)   # their size at the model (reference size rule)
 
@@ -464,6 +483,8 @@ def phase_kernels(dev):
             if h == 48:
                 results[f"conv_block[{inst}]"] = out
 
+    results.update(i8_kernels(dev, rng, record, library_conv, bound))
+
     gen = torch.Generator(device=dev).manual_seed(0)
     raw = torch.randint(0, 256, (BATCH, *SRC_HW, 3), generator=gen,
                         device=dev, dtype=torch.uint8)
@@ -477,11 +498,29 @@ def phase_kernels(dev):
     # this 5x downscale), and the output.
     rows = int((_resize_matrices(*SRC_HW, *MODEL_HW)[0] != 0).any(0).sum())
     nbytes = BATCH * rows * SRC_HW[1] * 3 + got.numel() * got.element_size()
+    # The library's yardstick: one bilinear F.interpolate (half-pixel
+    # centres, no antialias) of the frames as f32 channels-last NCHW, made
+    # outside the timed call; its output, flipped to RGB and over 255, is
+    # held against the plain version's by K5's tolerance and reported.
+    src = raw.permute(0, 3, 1, 2).float().contiguous(
+        memory_format=torch.channels_last)
+
+    def interp():
+        return F.interpolate(src, size=MODEL_HW, mode="bilinear",
+                             align_corners=False)
+
+    lib_err = (interp().flip(1).permute(0, 2, 3, 1) / 255.0
+               - ref).abs().max().item()
+    log(f"kernel resize_normalize: the library's F.interpolate (bilinear, "
+        f"align_corners=False), flipped and over 255, differs from the "
+        f"plain version by {lib_err:.3e} "
+        f"({'within' if lib_err <= K5_TOL else 'beyond'} K5's tol "
+        f"{K5_TOL:.0e})")
     results["resize_normalize"] = record(
         "resize_normalize", (BATCH, *SRC_HW, 3), err, f"tol {K5_TOL:.0e}",
         err <= K5_TOL, cuda_ms(lambda: resize_normalize(raw, *MODEL_HW)),
-        cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)), None,
-        (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+        cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)),
+        cuda_ms(interp), (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
         stream_ms(lambda: resize_normalize(raw, *MODEL_HW)))
     results["yuv420_to_bgr"] = yuv_kernel(dev, record)
     for name, row in results.items():
@@ -491,6 +530,60 @@ def phase_kernels(dev):
     log(f"kernels: launches so far {read_launches()} (comparisons and "
         "timing only)")
     return results
+
+
+def i8_kernels(dev, rng, record, library_conv, bound):
+    """The ``int8_mxu`` blocks against their plain versions with a max
+    diff of 0, with the prod net's folded chain (weights, scales and
+    rings as the step hands them over): layer 1 on a seeded batch of
+    raw frames at 144x256, the mid-stack block on layer 1's codes at
+    48x85 and on layer 2's at 16x28.  Rows at the main path's shapes
+    (layer 1, layer 2): the library's yardstick is cuDNN's f32
+    convolution of the same integer values (the shifted pixels or the
+    codes, and the int8 weights), TF32 off, the conv alone; the bound
+    counts the ops on the int8 peak."""
+    from cut_detection_tpu_torch.models.assembly import (
+        GluedNet,
+        fold_preprocess,
+        load_default_net,
+        precompute_rings,
+    )
+    from cut_detection_tpu_torch.ops.kernels import conv_block_i8 as k8
+
+    base, _ = load_default_net(dev, "int8_mxu")
+    net = GluedNet(base.model_params, "int8_mxu")
+    net.load_state_dict(fold_preprocess(base.state_dict()))
+    net.to(dev)
+    h, w = MODEL_HW
+    rings = precompute_rings(net, h, w)
+    x = torch.from_numpy(rng.integers(0, 256, (BATCH, h, w, 3),
+                                      dtype=np.uint8)).to(dev)
+    out, affine = {}, None
+    entries = ((k8.conv1_block_i8, k8.conv1_block_i8_plain, "conv1_block"),
+               (k8.conv_block_i8, k8.conv_block_i8_plain, "conv_block"),
+               (k8.conv_block_i8, k8.conv_block_i8_plain, "conv_block"))
+    for (fn, plain, name), layer, ring in zip(entries, net.conv.conv_layers,
+                                              rings):
+        k, so, scale = layer.i8_args(affine)
+        affine = layer.i8_pending_affine()
+        args = (x, k, so, ring, scale)
+        got, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        b, hh, ww, cin = x.shape
+        ints = (x.float() - 128.0) if x.dtype == torch.uint8 else x.float()
+        zero = torch.zeros(k.shape[-1], device=dev)
+        row = record(f"{name}[i8]", tuple(x.shape), float(err), "max diff 0",
+                     err == 0, cuda_ms(lambda: fn(*args)),
+                     cuda_ms(lambda: plain(*args)),
+                     cuda_ms(library_conv(ints, k.float(), zero,
+                                          torch.float32)),
+                     bound((x, k, so, ring, scale), got, hh, ww, cin,
+                           k.shape[-1], "i8"),
+                     stream_ms(lambda: fn(*args)))
+        out.setdefault(f"{name}[i8]", row)
+        x = got
+    return out
 
 
 def yuv_kernel(dev, record):
@@ -578,9 +671,16 @@ def _wrappers():
         yuv420_to_bgr,
     )
 
+    from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
+        conv1_block_i8,
+        conv_block_i8,
+    )
+
     return {"conv1_block": conv1_block, "conv_block": conv_block,
             "resize_normalize": resize_normalize,
-            "yuv420_to_bgr": yuv420_to_bgr}
+            "yuv420_to_bgr": yuv420_to_bgr,
+            "conv1_block[i8]": conv1_block_i8,
+            "conv_block[i8]": conv_block_i8}
 
 
 def zero_launches() -> None:
@@ -628,8 +728,12 @@ PATH_LAUNCHES = {
     ("uint8_pool", True): {"resize_normalize": 1},
     ("uint8_chain", False): {},
     ("uint8_chain", True): {"resize_normalize": 1},
+    # The int8 blocks; after the fused preprocess layer 1 is dense (plain
+    # PyTorch) and the mid-stack blocks int8.
+    ("int8_mxu", False): {"conv1_block[i8]": 1, "conv_block[i8]": 2},
+    ("int8_mxu", True): {"resize_normalize": 1, "conv_block[i8]": 2},
 }
-QUANTIZED = ("uint8_pool", "uint8_chain")
+QUANTIZED = ("uint8_pool", "uint8_chain", "int8_mxu")
 
 
 def per_batch(n: int, precision: str = "float32", fused: bool = False,
@@ -739,10 +843,11 @@ def phase_precision(dev, frames, workdir):
         wall_ms = 1e3 * (time.perf_counter() - t0)
         log(f"precision: {precision}, step on a resident batch of {BATCH} "
             f"{cuda_ms(lambda: step(resident)):.4f} ms (CUDA events; "
-            f"earlier {EARLIER_STEP_MS[precision]}); loop of {reps} batches "
-            f"from host memory {1e3 * reps * BATCH / wall_ms:.1f} frames/s "
-            f"(earlier {EARLIER_FPS[precision]}), {wall_ms / reps:.4f} ms "
-            "per batch")
+            f"earlier {EARLIER_STEP_MS.get(precision, 'none')}); loop of "
+            f"{reps} batches from host memory "
+            f"{1e3 * reps * BATCH / wall_ms:.1f} frames/s (earlier "
+            f"{EARLIER_FPS.get(precision, 'none')}), {wall_ms / reps:.4f} "
+            "ms per batch")
         if precision in QUANTIZED:
             trace_loop(f"precision {precision}", loop, reps)
     return launches
@@ -1177,10 +1282,12 @@ def phase_golden(workdir):
                     raise AssertionError(
                         f"{clip} {precision} {flags}: CSV differs from "
                         f"{os.path.basename(ref)}")
-    corpus = [(p, run) for p in ("bfloat16", "bfloat16_full")
+    # Every corpus clip at the bf16 rungs and int8_mxu, corpus_a and
+    # corpus_nat at the uint8 rungs.
+    corpus = [(p, run) for p in ("bfloat16", "bfloat16_full", "int8_mxu")
               for run in CORPUS_RUNS]
-    corpus += [(p, run) for p in QUANTIZED for run in CORPUS_RUNS
-               if run[0] in ("corpus_a", "corpus_nat")]
+    corpus += [(p, run) for p in ("uint8_pool", "uint8_chain")
+               for run in CORPUS_RUNS if run[0] in ("corpus_a", "corpus_nat")]
     for precision, (name, n, frame_min) in corpus:
         out = os.path.join(workdir, name + ".csv")
         wall, launches = _cli_run(
@@ -1201,7 +1308,47 @@ def phase_golden(workdir):
         if not ok:
             raise AssertionError(f"{name} {precision} fails its gate: "
                                  f"{res}")
+    golden_options(cli_main, workdir, extra)
     golden_yuv(cli_main, evaluate, workdir, extra)
+
+
+def golden_options(cli_main, workdir, extra):
+    """``--device-glue`` at float32 on both golden clips (the host glue's
+    bytes, which are the reference's), then ``--profile DIR`` on
+    ``clip.mp4``: the reference's bytes and one trace file in DIR that
+    holds the card's kernels."""
+    for clip, ref, n in GOLDEN_CLIPS:
+        out = os.path.join(workdir, clip + ".csv")
+        wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
+                                  "float32", ["--device-glue", *extra], n)
+        with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
+            same = f.read() == g.read()
+        log(f"golden: {clip} float32 --device-glue -> "
+            f"{'byte-identical to' if same else 'DIFFERS from'} {ref} "
+            f"({wall:.1f} s, launches {launches})")
+        if not same:
+            raise AssertionError(f"{clip} --device-glue: CSV differs from "
+                                 f"{ref}")
+    clip, ref, n = GOLDEN_CLIPS[0]
+    out = os.path.join(workdir, clip + ".csv")
+    trace = os.path.join(workdir, "trace")
+    wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
+                              "float32", ["--profile", trace, *extra], n)
+    with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
+        same = f.read() == g.read()
+    names = os.listdir(trace)
+    kernels = 0
+    for name in names:
+        with open(os.path.join(trace, name)) as f:
+            kernels += sum(e.get("cat") == "kernel"
+                           for e in json.load(f)["traceEvents"])
+    log(f"golden: {clip} float32 --profile -> "
+        f"{'byte-identical to' if same else 'DIFFERS from'} {ref}, trace "
+        f"files {names} with {kernels} kernel events ({wall:.1f} s, "
+        f"launches {launches})")
+    if not same or len(names) != 1 or not kernels:
+        raise AssertionError("--profile: the CSV differs or no trace of the "
+                             "card's kernels was written")
 
 
 def golden_yuv(cli_main, evaluate, workdir, extra):
@@ -1264,6 +1411,68 @@ def golden_yuv(cli_main, evaluate, workdir, extra):
             if not ok:
                 raise AssertionError(f"{name} {precision} yuv420 fails its "
                                      f"gate: {res}")
+
+
+def game_scores(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded per-frame ``(conf, pred)`` of a game: class runs of
+    geometric length (mean 150 frames, 5 s) under noisy logits, so that
+    short runs and single-frame flips leave orphans to glue."""
+    rng = np.random.default_rng(seed)
+    runs, total = [], 0
+    while total < n:
+        length = int(rng.geometric(1 / 150))
+        runs.append(np.full(length, rng.integers(0, 3)))
+        total += length
+    labels = np.concatenate(runs)[:n]
+    scores = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    scores[np.arange(n), labels] += rng.uniform(1.5, 6, n).astype(np.float32)
+    return scores.max(1), scores.argmax(1).astype(np.int32)
+
+
+def phase_device_glue(dev):
+    """The smoother on the card against the host glue on a seeded game of
+    ``GAME_FRAMES`` frames: the same segments, the means within 1e-5
+    (the host rounds the merge's product on its own, the card as the JAX
+    program fuses it); each one's wall time, the card's including its
+    fetches, and the card's loop iterations."""
+    from cut_detection_tpu_torch.segmentation import rle
+    from cut_detection_tpu_torch.segmentation.device_glue import (
+        smooth_tables,
+    )
+
+    conf, pred = game_scores(GAME_FRAMES)
+    n_seg = 1 + int(np.count_nonzero(pred[1:] != pred[:-1]))
+    max_segments = max(4096, 1 << (n_seg - 1).bit_length())
+    backend = "native" if rle._native_available() else "python"
+    t0 = time.perf_counter()
+    seg = rle.Segmentation.from_frame_scores(conf, pred)
+    seg.glue_orphans(100, 10)
+    seg.combine_adjacent_segments()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    conf_d, pred_d = torch.from_numpy(conf).to(dev), torch.from_numpy(
+        pred).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    te, count, loops = smooth_tables(conf_d, pred_d, 100, 10,
+                                     max_segments=max_segments)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    act = te["active"].cpu().numpy()
+    same = all(np.array_equal(te[k].cpu().numpy()[act], seg.te[v])
+               for k, v in (("start", "start_frames"),
+                            ("type", "frame_types"), ("end", "end_frames")))
+    means = np.allclose(te["mean"].cpu().numpy()[act],
+                        seg.te["score_means"], rtol=1e-5, atol=1e-5)
+    log(f"device_glue: {GAME_FRAMES} frames, {count} initial segments "
+        f"(table of {max_segments} rows) -> {int(act.sum())}: card "
+        f"{card_ms:.4f} ms ({loops['sum']} summing steps, {loops['glue']} "
+        f"orphan merges, {loops['adjacent']} adjacent merges, one fetch "
+        f"each), host glue ({backend}) {host_ms:.4f} ms; segments "
+        f"{'identical' if same else 'DIFFER'}, means "
+        f"{'within 1e-5' if means else 'DIFFER'}")
+    if not (same and means and count == n_seg):
+        raise AssertionError("the smoother on the card differs from the "
+                             "host glue")
 
 
 def phase_bench(dev):
@@ -1422,10 +1631,14 @@ KERNEL_ROWS = (
      "cut_detection_tpu/ops/pallas/preprocess_kernel.py:74"),
     ("yuv420_to_bgr", "yuv420", "cut_detection_tpu_torch/csrc/"
      "yuv420_to_bgr.cu", "cut_detection_tpu/ops/yuv.py:79"),
+    ("conv1_block[i8]", "int8_mxu", "cut_detection_tpu_torch/csrc/"
+     "conv_block_i8.cu", "cut_detection_tpu/models/layers.py:229"),
+    ("conv_block[i8]", "int8_mxu", "cut_detection_tpu_torch/csrc/"
+     "conv_block_i8.cu", "cut_detection_tpu/models/layers.py:229"),
 )
 # The rows whose ``replaces`` is an op the JAX package leaves to XLA (no
 # Pallas kernel): each row's ``replaces_kind`` says which it is.
-XLA_ROWS = ("yuv420_to_bgr",)
+XLA_ROWS = ("yuv420_to_bgr", "conv1_block[i8]", "conv_block[i8]")
 
 
 def timed(name: str, fn, *args):
@@ -1453,6 +1666,7 @@ def run() -> tuple[str, list[dict]]:
         paths.update(timed("precision", phase_precision, dev, frames, wd))
         paths["bench_fused"] = timed("bench_fused", phase_bench, dev)
         timed("golden", phase_golden, wd)
+        timed("device_glue", phase_device_glue, dev)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -14,15 +14,18 @@ on-device preprocess is asked for, and bgr otherwise (always on the CPU).
 yuv420 resizes in YUV space, so it is held by the accuracy corpus;
 ``--transfer bgr`` is the byte-parity path.  ``--precision`` takes
 ``float32`` (the reference-parity CSVs), ``bfloat16``, ``bfloat16_full``,
-``uint8_pool`` and ``uint8_chain``.  Options of the JAX CLI that the port
-does not run yet are refused when the arguments are parsed, never
-ignored: ``--precision int8_mxu``, ``--device-glue`` and ``--profile``.
+``uint8_pool``, ``uint8_chain`` and ``int8_mxu`` (int8 convs with int32
+sums).  ``--device-glue`` runs the segment smoother on the model's
+device (same CSV); ``--profile DIR`` writes a ``torch.profiler`` trace of
+the run into DIR.  Every option of the JAX CLI runs; as there,
+``--transfer yuv420`` does not combine with an on-device resize.
 
     python -m cut_detection_tpu_torch.cli.segment_video VIDEO.mp4 \\
         [--transfer {auto,bgr,yuv420}] \\
         [--device-resize [--pallas-preprocess]] \\
-        [--precision {float32,bfloat16,bfloat16_full,uint8_pool,uint8_chain}] \\
-        [--output_path OUT.csv] [--cpu]
+        [--precision {float32,bfloat16,bfloat16_full,uint8_pool,
+                      uint8_chain,int8_mxu}] \\
+        [--device-glue] [--profile DIR] [--output_path OUT.csv] [--cpu]
 """
 
 from __future__ import annotations
@@ -90,48 +93,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-name", type=str, default="init_model",
                    help="Triplet name prefix within --model-dir.")
     p.add_argument("--device-glue", action="store_true",
-                   help="Not yet ported.")
+                   help="Run the orphan-glue/merge smoother on the model's "
+                        "device instead of the host loop (same output).")
     p.add_argument("--cache-scores", type=str, default=None,
                    help="Path to a per-frame score cache (.npz); resumes "
                         "from it if present.")
     p.add_argument("--profile", type=str, default=None,
-                   help="Not yet ported.")
+                   help="Directory for a torch.profiler trace of the run.")
     p.add_argument("--precision", choices=list(PRECISION_CHOICES),
                    default="float32",
                    help="float32 guarantees reference-parity CSVs; "
                         "bfloat16 uses bf16 operands; bfloat16_full also "
                         "keeps activations bf16; uint8_pool quantizes the "
                         "conv activations to uint8 before the pool; "
-                        "uint8_chain also keeps them uint8 between layers.  "
-                        "int8_mxu is not yet ported.")
+                        "uint8_chain also keeps them uint8 between layers; "
+                        "int8_mxu stores them int8 and runs the convs as "
+                        "int8 x int8 -> int32.")
     return p
 
 
-def _refuse_unported(parser: argparse.ArgumentParser, ns) -> None:
-    from cut_detection_tpu_torch.models.assembly import PORTED_PRECISIONS
-
+def main(args=None) -> str:
+    parser = build_parser()
+    ns = parser.parse_args(args)
     if ns.transfer == "yuv420" and (ns.device_resize or ns.pallas_preprocess):
         # The JAX CLI's parse-time exclusion, kept as it is.
         parser.error("--transfer yuv420 cannot combine with "
                      "--device-resize/--pallas-preprocess (YUV frames "
                      "arrive at model resolution already); use "
                      "--transfer auto or bgr")
-    unported = []
-    if ns.precision not in PORTED_PRECISIONS:
-        unported.append(f"--precision {ns.precision}")
-    if ns.device_glue:
-        unported.append("--device-glue")
-    if ns.profile is not None:
-        unported.append("--profile")
-    if unported:
-        parser.error(f"{', '.join(unported)}: not yet ported, see "
-                     "ROADMAP.md")
-
-
-def main(args=None) -> str:
-    parser = build_parser()
-    ns = parser.parse_args(args)
-    _refuse_unported(parser, ns)
     setup_logging()
 
     from cut_detection_tpu_torch.utils.device import (
@@ -150,6 +139,7 @@ def main(args=None) -> str:
         load_triplet_or_default,
     )
     from cut_detection_tpu_torch.pipeline import segment_video_file
+    from cut_detection_tpu_torch.utils.profiling import maybe_trace
 
     net = None
     if ns.model_dir:
@@ -157,26 +147,28 @@ def main(args=None) -> str:
                                          ns.precision)
         logging.info("Loaded model triplet %s from %s", ns.model_name,
                      ns.model_dir)
-    out_path, _, _ = segment_video_file(
-        ns.input_path,
-        ns.output_path,
-        device=device,
-        net=net,
-        base_threshold=ns.base_threshold,
-        blank_threshold=ns.blank_threshold,
-        batch_size=ns.batch_size,
-        frame_limit=ns.frame_limit,
-        print_every=ns.print_every,
-        decode_workers=ns.decode_workers,
-        decoder=ns.decoder,
-        decode_process={"auto": "auto", "on": True,
-                        "off": False}[ns.decode_process],
-        transfer=ns.transfer,
-        device_resize=ns.device_resize,
-        pallas_preprocess=ns.pallas_preprocess,
-        cache_path=ns.cache_scores,
-        precision=ns.precision,
-    )
+    with maybe_trace(ns.profile, cuda=device.type == "cuda"):
+        out_path, _, _ = segment_video_file(
+            ns.input_path,
+            ns.output_path,
+            device=device,
+            net=net,
+            base_threshold=ns.base_threshold,
+            blank_threshold=ns.blank_threshold,
+            batch_size=ns.batch_size,
+            frame_limit=ns.frame_limit,
+            print_every=ns.print_every,
+            decode_workers=ns.decode_workers,
+            decoder=ns.decoder,
+            decode_process={"auto": "auto", "on": True,
+                            "off": False}[ns.decode_process],
+            transfer=ns.transfer,
+            device_resize=ns.device_resize,
+            pallas_preprocess=ns.pallas_preprocess,
+            cache_path=ns.cache_scores,
+            precision=ns.precision,
+            device_glue=ns.device_glue,
+        )
     return out_path
 
 

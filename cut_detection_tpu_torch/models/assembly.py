@@ -3,8 +3,8 @@
 Counterpart of ``cut_detection_tpu/models/assembly.py`` (``GluedNet``
 ``:38-137``, ``fold_preprocess`` ``:140-157``, ``folded_input``
 ``:160-170``, ``precompute_rings`` ``:173-240``, the loaders ``:243-285,
-307-327``); reference frameID/net.py:193-233.  Every precision rung but
-``int8_mxu`` is ported (``PORTED_PRECISIONS``); the CLI refuses that one.
+307-327``); reference frameID/net.py:193-233.  Every precision rung is
+ported (``PORTED_PRECISIONS``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from cut_detection_tpu_torch.checkpoint.convert import params_from_jax
 from cut_detection_tpu_torch.checkpoint.io import load_bundle
 from cut_detection_tpu_torch.config import ModelParams
 from cut_detection_tpu_torch.models.frame_conv import (
+    CHAIN_RUNGS,
     FrameConvNet,
     FrameLinearNet,
 )
@@ -30,9 +31,9 @@ from cut_detection_tpu_torch.models.layers import (
 logger = logging.getLogger(__name__)
 
 PORTED_PRECISIONS = ("float32", "bfloat16", "bfloat16_full", "uint8_pool",
-                     "uint8_chain")
+                     "uint8_chain", "int8_mxu")
 # The rungs whose activation scales come from the BN running statistics.
-QUANTIZED_PRECISIONS = ("uint8_pool", "uint8_chain")
+QUANTIZED_PRECISIONS = ("uint8_pool", "uint8_chain", "int8_mxu")
 
 # The bundled prod classifier is the JAX package's data, read by path
 # from the sibling directory (the port imports nothing of that package).
@@ -80,9 +81,9 @@ class GluedNet(nn.Module):
         return self.conv.conv_layers[0].conv.weight.device
 
     def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:
-        """``rings``: the ``uint8_chain`` constant terms from
-        ``precompute_rings(net, h, w)`` of this net, or None to compute
-        them in the forward."""
+        """``rings``: the ``uint8_chain`` or ``int8_mxu`` constant terms
+        from ``precompute_rings(net, h, w)`` of this net, or None to
+        compute them in the forward."""
         return self.linear(self.conv(x, rings))
 
     def num_params(self) -> int:
@@ -114,8 +115,9 @@ def fold_preprocess(state_dict: dict) -> dict:
 def folded_input(frames_u8: torch.Tensor) -> torch.Tensor:
     """Input of a ``fold_preprocess``'d net: the raw uint8 BGR frames.
 
-    Layer 1's kernel reads uint8 itself (the JAX package casts to
-    float32 here instead), so this only validates and makes contiguous.
+    Layer 1's kernel reads uint8 itself at every rung (the JAX package
+    casts to float32 here at all but ``int8_mxu``, whose layer 1 takes
+    the raw frames too), so this only validates and makes contiguous.
     """
     if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 \
             or frames_u8.shape[3] != 3:
@@ -125,9 +127,12 @@ def folded_input(frames_u8: torch.Tensor) -> torch.Tensor:
 
 
 class Rings(tuple):
-    """The ``uint8_chain`` blocks' constant terms, one per conv layer (None
-    for layer 1, whose input is dense), with the ``FrameConvNet`` they
-    were computed from as ``source``."""
+    """The chained blocks' constant terms, one per conv layer, with the
+    ``FrameConvNet`` they were computed from as ``source``: at
+    ``uint8_chain`` the ``[1, h, w, C]`` canvases (None for layer 1, whose
+    input is dense); at ``int8_mxu`` the ``[3, w, C]`` f32 strips that the
+    int8 blocks take (``ops.kernels.conv_block_i8.ring_canvas`` expands
+    one), layer 1's too where it reads raw pixels."""
 
     def __new__(cls, rings, source):
         out = super().__new__(cls, rings)
@@ -136,30 +141,43 @@ class Rings(tuple):
 
 
 @torch.inference_mode()
-def precompute_rings(net: GluedNet, h: int, w: int) -> Rings | None:
+def precompute_rings(net: GluedNet, h: int, w: int, *,
+                     fold: bool = True) -> Rings | None:
     """The ring constants of ``net`` for an input of ``h`` x ``w``, once.
 
-    Each ``uint8_chain`` block after the first adds ``conv(b * 1, W) +
-    bias``, a term that depends only on the weights and the input size;
-    a per-batch step computes it here once per (net, size) and passes it
-    in.  The walk takes the pending affine from the same method as the
-    blocks (``ConvBlock.u8_pending_affine``) and the same strip conv
-    (``const_conv_ring``), so the logits are bit-identical to the
-    in-forward rings.  A folded net and its unfolded copy have the same
-    rings (layer 1, the only folded one, has none), each tagged with its
-    own net.  None for a rung without rings.
+    Each chained block adds ``conv(b * 1, W) + bias``, a term that
+    depends only on the weights and the input size; a per-batch step
+    computes it here once per (net, size) and passes it in.  The walk
+    takes the pending affine from the same method as the blocks
+    (``ConvBlock.u8_pending_affine`` / ``i8_pending_affine``) and the same
+    strip conv (``const_conv_ring``), so the logits are bit-identical to
+    the in-forward rings.  ``fold`` says that layer 1 reads raw uint8
+    pixels (a ``fold_preprocess``'d net), as the JAX function's does: at
+    ``int8_mxu`` layer 1 then has a ring of its own (``b = 128``, the
+    -128 shift); at ``uint8_chain`` it has none either way.  Each net's
+    rings are tagged with it.  None for a rung without rings.
     """
     conv = net.conv
-    if conv.compute_dtype != "uint8_chain":
+    if conv.compute_dtype not in CHAIN_RUNGS:
         return None
+    int8 = conv.compute_dtype == "int8_mxu"
     rings, affine = [], None
     for layer in conv.conv_layers:
-        if affine is None:
-            rings.append(None)  # dense input, no ring
+        kernel, bias = layer.hwio().float(), layer.conv.bias
+        if affine is None and int8 and fold:
+            b = torch.full((kernel.shape[2],), 128.0, device=kernel.device)
+        elif affine is None:
+            b = None  # dense input, no ring
         else:
-            rings.append(const_conv_ring(affine[1], layer.hwio(),
-                                         layer.conv.bias, h, w))
-        affine = layer.u8_pending_affine()
+            b = affine[1]
+        if b is None or (int8 and min(h, w) < 3):
+            rings.append(None)  # no input ring, or no pool window
+        elif int8:
+            rings.append(const_conv_ring(b, kernel, bias, 3, w)[0].float())
+        else:
+            rings.append(const_conv_ring(b, kernel, bias, h, w))
+        affine = (layer.i8_pending_affine() if int8
+                  else layer.u8_pending_affine())
         # Floor pooling, the blocks' window.
         h, w = h // POOL_WINDOW, w // POOL_WINDOW
     return Rings(rings, conv)

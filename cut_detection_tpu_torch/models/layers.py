@@ -29,7 +29,13 @@ plain PyTorch (no Pallas kernel lies behind them):
   dequantize + BN affine is not applied: it goes to the next block, whose
   conv takes the codes with the affine's scale folded into its weights and
   adds the affine's offset as an input-independent constant term, the
-  *ring* (``const_conv_ring``).  ``FrameConvNet`` runs the chain.
+  *ring* (``const_conv_ring``).  ``FrameConvNet`` runs the chain;
+- ``"int8_mxu"`` (``layers.py:229-280``): ``uint8_chain``'s chain with the
+  codes stored as int8 (shifted by -128, the shift folded into the
+  pending affine's offset) and the conv run as int8 x int8 -> int32 with
+  per-output-channel weight scales (``ops.nn.quantize_kernel_i8``): the
+  ``conv1_block_i8`` and ``conv_block_i8`` kernels on the card
+  (``ops.kernels.conv_block_i8``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,11 @@ from torch import nn
 
 from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
 from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
+from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
+    conv1_block_i8,
+    conv_block_i8,
+    quantize_pool_i8,
+)
 from cut_detection_tpu_torch.ops.nn import (
     BN_EPS,
     batch_norm_infer,
@@ -47,6 +58,7 @@ from cut_detection_tpu_torch.ops.nn import (
     conv2d_same,
     linear,
     max_pool,
+    quantize_kernel_i8,
 )
 
 # The reference's max-pool window and stride (frameID/net.py:90-120); the
@@ -127,7 +139,8 @@ class ConvBlock(nn.Module):
       compiled step, and so its CLI, computes it so);
     - ``"uint8_pool"``: plain PyTorch, no kernel (``_forward_u8_pool``);
     - ``"uint8_chain"``: ``FrameConvNet`` chains the blocks'
-      ``forward_u8_chain``; ``forward`` has no instance for it and raises.
+      ``forward_u8_chain``; ``forward`` has no instance for it and raises;
+    - ``"int8_mxu"``: likewise, with ``forward_i8_chain``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, compute_dtype=None, *,
@@ -138,6 +151,7 @@ class ConvBlock(nn.Module):
         self.compute_dtype = compute_dtype
         self.feeds_head = feeds_head
         self._frozen = None
+        self._i8_frozen: dict = {}
 
     def kernel_args(self):
         """(HWIO kernel, bias, BN scale, BN offset) for the block kernels:
@@ -197,6 +211,65 @@ class ConvBlock(nn.Module):
         q = quantize_pool_u8(torch.relu(z).float(), self.quantize_scale())
         return q, self.u8_pending_affine()
 
+    def i8_pending_affine(self):
+        """``int8_mxu``'s pending affine: ``uint8_chain``'s with the -128
+        storage shift folded into the offset (``dense = q * a + b`` with
+        ``b += 128 * a``).  A frozen block computes it once."""
+        if "affine" in self._i8_frozen:
+            return self._i8_frozen["affine"]
+        a, b = self.u8_pending_affine()
+        affine = (a, b + 128.0 * a)
+        if self._frozen is not None:
+            self._i8_frozen["affine"] = affine
+        return affine
+
+    def i8_args(self, affine=None):
+        """(int8 HWIO kernel, its per-channel scale, activation scale) of
+        the block's int8 conv: the kernel with the pending affine's scale
+        folded in (``a = 1`` for raw pixels, ``affine=None``), quantized by
+        ``quantize_kernel_i8``.  A frozen block computes them once per
+        input ("pixels" or "codes"): its pending scale then comes from
+        weights that no longer change."""
+        branch = "pixels" if affine is None else "codes"
+        if branch in self._i8_frozen:
+            return self._i8_frozen[branch]
+        kernel = self.hwio().float()
+        a = (torch.ones(kernel.shape[2], device=kernel.device)
+             if affine is None else affine[0])
+        k_i8, so = quantize_kernel_i8(kernel * a[None, None, :, None])
+        args = (k_i8.contiguous(), so, self.quantize_scale())
+        if self._frozen is not None:
+            self._i8_frozen[branch] = args
+        return args
+
+    def forward_i8_chain(self, x, affine=None, ring=None):
+        """One ``int8_mxu`` block (JAX ``apply_conv_block_i8``): ``x`` is
+        raw uint8 frames (``affine=None``: int8 after a -128 shift, with
+        ``a = 1``, ``b = 128``), the previous block's int8 codes with their
+        pending ``affine``, or the dense float input of an unfolded layer
+        1 (``affine=None``), which runs ``uint8_chain``'s bf16 conv in
+        plain PyTorch.  ``ring`` is the constant term ``conv(b * 1, W) +
+        bias`` as the strip ``[3, W, Cout]`` f32 of
+        ``assembly.precompute_rings``; without it the strip is computed
+        here.  Returns ``(int8 codes, this block's pending affine)``."""
+        kernel = self.hwio().float()
+        if affine is None and x.dtype != torch.uint8:
+            z = conv2d_same(x.float(), kernel, self.conv.bias,
+                            compute_dtype="bfloat16_full")
+            q = quantize_pool_i8(torch.relu(z), self.quantize_scale())
+            return q, self.i8_pending_affine()
+        k_i8, so, scale = self.i8_args(affine)
+        # A frame under 3 x 3 has no pool window: the block returns no
+        # codes and reads no ring.
+        if ring is None and min(x.shape[1:3]) >= 3:
+            b = (torch.full((kernel.shape[2],), 128.0, device=x.device)
+                 if affine is None else affine[1])
+            ring = const_conv_ring(b, kernel, self.conv.bias, 3,
+                                   x.shape[2])[0].float()
+        block = conv1_block_i8 if x.dtype == torch.uint8 else conv_block_i8
+        return (block(x.contiguous(), k_i8, so, ring, scale),
+                self.i8_pending_affine())
+
     def _forward_u8_pool(self, x):
         bn = self.bn
         z = conv2d_same(x.float(), self.hwio(), self.conv.bias,
@@ -213,6 +286,7 @@ class ConvBlock(nn.Module):
         for a block whose weights and device are final, such as the
         classify step's private copy: later changes are not seen."""
         self._frozen = None
+        self._i8_frozen = {}
         self._frozen = self.kernel_args()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "cutdet_resize_normalize": [_P] * 6 + [_I] * 5 + [_P],
     # x, out, B, H, W, stream
     "cutdet_yuv420_to_bgr": [_P] * 2 + [_I] * 3 + [_P],
+    # x, w, so, ring, scale, out, B, H, W, Cout, stream
+    "cutdet_conv1_block_i8": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, so, ring, scale, out, B, H, W, Cin, Cout, stream
+    "cutdet_conv_block_i8": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

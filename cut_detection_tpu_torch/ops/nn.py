@@ -147,3 +147,40 @@ def linear(x, weight, bias=None, *, compute_dtype=None):
     if bias is not None:
         out = out + bias
     return out
+
+
+def quantize_kernel_i8(kernel):
+    """Per-output-channel symmetric int8 weight quantization
+    (``cut_detection_tpu/ops/nn.py:94-106``): ``kernel ~= k_i8 * scale``
+    with ``scale = max(amax / 127, 1e-12)`` per output channel (the last
+    axis), ``k_i8 = clip(rint(kernel / scale), -127, 127)``.  Both
+    divisions take a tensor divisor: torch divides by a Python scalar as
+    a product with its reciprocal, which is not always the quotient the
+    JAX op rounds to.  Returns ``(k_i8 int8, scale f32)``."""
+    kernel = kernel.float()
+    amax = kernel.abs().amax(dim=tuple(range(kernel.dim() - 1)))
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    k_i8 = torch.clamp(torch.round(kernel / scale), -127.0, 127.0)
+    return k_i8.to(torch.int8), scale
+
+
+def conv2d_same_i8_plain(x_i8, kernel_i8):
+    """3x3 'same' convolution of int8 operands with exact int32 sums, NHWC
+    x HWIO -> NHWC (``cut_detection_tpu/ops/nn.py:73-91``).
+
+    Zero-padded im2col columns ``[H*W, 9*Cin]`` against the kernel as
+    ``[9*Cin, Cout]``, in float64, then cast to int32.  Every product and
+    partial sum is an integer of magnitude at most ``9 * Cin * 128 * 127``
+    (7,022,592 at 48 channels, below 2^24), so the result is exact in any
+    summation order on either device.  ``F.conv2d`` is no substitute: on
+    int8 it returns int8 (it wraps), and an f32 convolution may take a
+    Winograd or FFT algorithm, which is not exact.  The columns take 72
+    times the input's bytes: callers pass a few frames at a time.
+    """
+    b, h, w, cin = x_i8.shape
+    cout = kernel_i8.shape[-1]
+    # F.unfold orders a column (c, ky, kx): the kernel likewise.
+    wmat = kernel_i8.permute(2, 0, 1, 3).reshape(9 * cin, cout).double()
+    cols = F.unfold(_nchw(x_i8).double(), 3, padding=1)  # [B, 9*Cin, H*W]
+    sums = cols.transpose(1, 2) @ wmat                    # [B, H*W, Cout]
+    return sums.reshape(b, h, w, cout).to(torch.int32)

@@ -2,15 +2,16 @@
 -> CSV.
 
 Counterpart of ``cut_detection_tpu/pipeline.py`` (both transfers, at
-every precision rung but ``int8_mxu``), mirroring the reference's
-segment_video.py:20-77:
+every precision rung, the smoother on the host or on the device),
+mirroring the reference's segment_video.py:20-77:
 
     decode (host thread or subprocess) -> uint8 NHWC BGR batches (or
     packed planar YUV420, ``transfer="yuv420"``) -> [device] YUV -> BGR
     kernel -> layer-1 kernel on raw pixels (preprocess folded into its
     weights) -> two more block kernels -> pool + FC head -> per-frame
     max / argmax -> one preallocated device score buffer -> one fetch ->
-    run-length table -> orphan glue -> adjacent merge -> CSV.
+    run-length table -> orphan glue -> adjacent merge -> CSV (the last
+    three on the net's device with ``device_glue``).
 
 ``transfer="auto"`` picks yuv420 on CUDA when the native YUV decoder is
 built and no on-device preprocess is asked for (:func:`resolve_transfer`):
@@ -114,9 +115,12 @@ def make_classify_step(net: GluedNet, *,
     The step runs at the net's precision.  Memoized per (net, options),
     as the JAX step is: nets of different precision, and the folded and
     the unfolded copies, are distinct nets.  Each copy's kernel arguments
-    are computed once, here, not in every step; at ``uint8_chain`` its
-    ring constants are computed once per input size, at the first batch
-    of that size (``assembly.precompute_rings``).  The step runs a
+    are computed once, here, not in every step (at ``int8_mxu``, at the
+    first batch); at ``uint8_chain`` and ``int8_mxu`` its ring constants
+    are computed once per input size, at the first batch of that size
+    (``assembly.precompute_rings``; layer 1 has a ring of its own at
+    ``int8_mxu`` where it reads raw pixels, not after the fused
+    preprocess).  The step runs a
     private copy of the net's weights, so later changes to ``net`` do not
     reach it and rings from another net cannot: make a new step instead.
     """
@@ -155,7 +159,7 @@ def make_classify_step(net: GluedNet, *,
             x = folded_input(x) if fold else normalize_frames(x)
         hw = tuple(x.shape[1:3])
         if hw not in ring_cache:
-            ring_cache[hw] = precompute_rings(frozen, *hw)
+            ring_cache[hw] = precompute_rings(frozen, *hw, fold=fold)
         logits = frozen(x, ring_cache[hw])
         return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
 
@@ -465,9 +469,41 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
             pred_all[mask.ravel()].astype(np.int32), stats)
 
 
-def _smooth(conf, pred, base_threshold: int,
-            blank_threshold: int) -> Segmentation:
-    """Per-frame scores -> smoothed segment table (host merge loops)."""
+def _smooth(conf, pred, base_threshold: int, blank_threshold: int, *,
+            device: torch.device | None = None) -> Segmentation:
+    """Per-frame scores -> smoothed segment table: the host merge loops,
+    or with ``device`` the whole smoother on that device
+    (``segmentation.device_glue``), which gives the same table."""
+    if device is not None:
+        from cut_detection_tpu_torch.segmentation.device_glue import (
+            device_smooth,
+        )
+
+        # The bound comes from a one-pass boundary count, rounded up to a
+        # power of two >= 4096 as the JAX pipeline rounds it, so it can
+        # never be exceeded.
+        pred = np.asarray(pred)
+        n_seg = (1 + int(np.count_nonzero(pred[1:] != pred[:-1]))
+                 if pred.size else 0)
+        logger.info("Found %d initial segments", n_seg)
+        max_segments = max(4096, 1 << max(n_seg - 1, 0).bit_length())
+        start, typ, active, _, mean, end = device_smooth(
+            torch.as_tensor(np.asarray(conf, np.float32), device=device),
+            torch.as_tensor(pred.astype(np.int32), device=device),
+            base_threshold, blank_threshold, max_segments=max_segments)
+        act = active.cpu().numpy()
+        starts = start.cpu().numpy()[act].astype(np.int64)
+        ends = end.cpu().numpy()[act].astype(np.int64)
+        seg = Segmentation(_te={
+            "start_frames": starts,
+            "frame_types": typ.cpu().numpy()[act].astype(np.int64),
+            "end_frames": ends,
+            "run_lengths": ends - starts + 1,
+            # Post-merge means (bug-compat inflated, as the host table's).
+            "score_means": mean.cpu().numpy()[act].astype(np.float32),
+        })
+        logger.info("Device smoother: %d segments.", len(seg))
+        return seg
     seg = Segmentation.from_frame_scores(conf, pred)
     logger.info("Found %d initial segments", len(seg))
     seg.glue_orphans(base_threshold, blank_threshold)
@@ -499,13 +535,16 @@ def segment_video_file(
     device_resize: bool = False,
     pallas_preprocess: bool = False,
     precision: str = "float32",
+    device_glue: bool = False,
 ) -> tuple[str, Segmentation, PipelineStats]:
     """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
 
     Default output naming (input stem + ``_segments.csv``) and glue
     thresholds follow segment_video.py:71-74, 91-102.  ``precision``
     applies when the default net is loaded here (see
-    :func:`classify_video`).
+    :func:`classify_video`).  ``device_glue`` runs the smoother on the
+    net's device (``segmentation.device_glue``), with the same result as
+    the host loops.
     """
     if not os.path.isfile(input_path):
         raise ValueError(f"{input_path} does not exist.")
@@ -516,7 +555,11 @@ def segment_video_file(
         decoder=decoder, decode_process=decode_process, transfer=transfer,
         device_resize=device_resize, pallas_preprocess=pallas_preprocess,
         precision=precision)
-    seg = _smooth(conf, pred, base_threshold, blank_threshold)
+    glue_device = None
+    if device_glue:
+        glue_device = net.device if net is not None else torch.device(device)
+    seg = _smooth(conf, pred, base_threshold, blank_threshold,
+                  device=glue_device)
     if output_path is None:
         output_path = os.path.splitext(input_path)[0] + "_segments.csv"
     logger.info("Writing %d segments to %s", len(seg), output_path)

@@ -1,10 +1,14 @@
-"""Throughput metering of the classify loop.
+"""Throughput metering of the classify loop, and the profiler hook.
 
-Copy of ``ThroughputMeter`` from ``cut_detection_tpu/utils/profiling.py:15``.
+``ThroughputMeter`` is a copy of ``cut_detection_tpu/utils/profiling.py:15``;
+``maybe_trace`` is the counterpart of its ``:60-84`` on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import time
 
 
@@ -52,3 +56,44 @@ class ThroughputMeter:
         e = time.perf_counter() - self._steady_t0
         n = self.total_items - self._steady_items
         return n / e if e > 0 else 0.0
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: str | None, *, cuda: bool = False):
+    """Trace the region with ``torch.profiler`` when ``trace_dir`` is set,
+    and write the trace into that directory as a Chrome trace
+    (``trace_<pid>_<time>.json``, readable in Perfetto or
+    chrome://tracing): host activity, and the card's with ``cuda``.
+
+    A profiler that fails to start, or a trace that cannot be written,
+    logs a warning and the run goes on, as with the JAX hook: tracing must
+    never take down a production run.  It hides no device or kernel.
+    """
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    log = logging.getLogger(__name__)
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.__enter__()
+    except Exception as e:  # a boundary: the run must go on untraced
+        log.warning("profiler unavailable: %s", e)
+        yield
+        return
+    try:
+        yield
+    finally:
+        prof.__exit__(None, None, None)
+        path = os.path.join(trace_dir, f"trace_{os.getpid()}_"
+                            f"{time.strftime('%Y%m%d-%H%M%S')}.json")
+        try:
+            prof.export_chrome_trace(path)
+            log.info("Wrote the profiler trace to %s", path)
+        except (OSError, RuntimeError) as e:
+            log.warning("could not write the profiler trace: %s", e)

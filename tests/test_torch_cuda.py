@@ -25,10 +25,14 @@ by a few 1e-3 (6.3e-3 at most on ``chip_smoke.py``'s slice stream).
 The slice at the quantized rungs: identical classes, conf within
 ``QUANT_CONF_TOL`` of ``chip_smoke.py`` (cuDNN's summation order against
 the CPU's moves a few uint8 codes by one), and no kernel launched on the
-default path: those rungs are plain PyTorch.
+default path at ``uint8_pool`` and ``uint8_chain``, which are plain
+PyTorch; at ``int8_mxu`` the int8 block kernels, whose codes equal their
+plain versions' with a max diff of 0 (exact int32 sums, the same IEEE
+roundings), and nothing else.
 """
 
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -53,6 +57,12 @@ from cut_detection_tpu_torch.ops.kernels.conv_block import (
     conv_block_plain,
     fused_conv_block,
     fused_conv_block_plain,
+)
+from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
+    conv1_block_i8,
+    conv1_block_i8_plain,
+    conv_block_i8,
+    conv_block_i8_plain,
 )
 from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
     resize_normalize,
@@ -129,6 +139,94 @@ def _assert_within_bf16_crossing(got, want, offset, xla=None):
                             else xla_check(got, want, offset, *xla))
     assert ok, (f"worst err / one-ulp bound {worst}, {crossings} of "
                 f"{got.numel()} elements crossed")
+
+
+def _i8_layers(dev, h=144, w=256):
+    """The prod net's folded ``int8_mxu`` chain at an input of ``h`` x
+    ``w``: per layer (int8 kernel, its scale, ring strip, activation
+    scale), as the classify step hands them to the kernels."""
+    from cut_detection_tpu_torch.models.assembly import (
+        GluedNet,
+        precompute_rings,
+    )
+
+    base, _ = load_default_net(dev, "int8_mxu")
+    net = GluedNet(base.model_params, "int8_mxu")
+    net.load_state_dict(fold_preprocess(base.state_dict()))
+    net.to(dev)
+    rings = precompute_rings(net, h, w)
+    out, affine = [], None
+    for layer, ring in zip(net.conv.conv_layers, rings):
+        k, so, scale = layer.i8_args(affine)
+        out.append((k, so, ring, scale))
+        affine = layer.i8_pending_affine()
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(144, 256), (143, 256), (3, 3), (7, 10)])
+def test_conv1_block_i8_kernel(cuda_dev, h, w):
+    """Layer 1 of ``int8_mxu`` from raw pixels: the kernel's codes equal
+    the plain version's (max diff 0), with the prod net's folded weights
+    and ring."""
+    k, so, ring, scale = _i8_layers(cuda_dev, h, w)[0]
+    x = T(np.random.default_rng(h + w).integers(
+        0, 256, (16, h, w, 3), dtype=np.uint8)).to(cuda_dev)
+    n = conv1_block_i8.launches
+    got = conv1_block_i8(x, k, so, ring, scale)
+    want = conv1_block_i8_plain(x, k, so, ring, scale)
+    assert conv1_block_i8.launches == n + 1
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layer,h,w", [(1, 48, 85), (2, 16, 28), (1, 47, 85),
+                                       (2, 5, 9), (1, 3, 3)])
+def test_conv_block_i8_kernel(cuda_dev, layer, h, w):
+    """A mid-stack ``int8_mxu`` block on seeded int8 codes with the prod
+    net's weights and rings (taken at the input size that gives ``h`` x
+    ``w`` at this layer): codes equal to the plain version's."""
+    k, so, ring, scale = _i8_layers(cuda_dev, h * 3 ** layer,
+                                    w * 3 ** layer)[layer]
+    assert ring.shape == (3, w, 48)
+    x = T(np.random.default_rng(h).integers(-128, 128, (16, h, w, 48),
+                                            dtype=np.int8)).to(cuda_dev)
+    n = conv_block_i8.launches
+    got = conv_block_i8(x, k, so, ring, scale)
+    assert conv_block_i8.launches == n + 1
+    assert torch.equal(got, conv_block_i8_plain(x, k, so, ring, scale))
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 16), (12, 48), (64, 64)])
+def test_conv_block_i8_kernel_widths(cuda_dev, cin, cout):
+    """Other widths (Cin % 4 == 0, Cout % 8 == 0), with random weights,
+    scales and rings that drive codes to both ends."""
+    rng = np.random.default_rng(cin + cout)
+    h, w = 20, 31
+    x = T(rng.integers(-128, 128, (5, h, w, cin), dtype=np.int8))
+    k = T(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+    so = T(rng.uniform(1e-4, 2e-3, cout).astype(np.float32))
+    ring = T(rng.normal(0, 1, (3, w, cout)).astype(np.float32))
+    scale = T(rng.uniform(0.005, 0.05, cout).astype(np.float32))
+    args = [t.to(cuda_dev) for t in (x, k, so, ring, scale)]
+    got = conv_block_i8(*args)
+    assert torch.equal(got, conv_block_i8_plain(*args))
+    assert torch.equal(got.cpu(), conv_block_i8(x, k, so, ring, scale))
+
+
+def test_i8_wrappers_reject_bad_arguments(cuda_dev):
+    k, so, ring, scale = _i8_layers(cuda_dev, 48, 84)[1]
+    x = torch.zeros(2, 16, 28, 48, dtype=torch.int8, device=cuda_dev)
+    with pytest.raises(TypeError):
+        conv_block_i8(x.float(), k, so, ring, scale)
+    with pytest.raises(ValueError):
+        conv_block_i8(x, k, so, ring[:, :5].contiguous(), scale)
+    with pytest.raises(ValueError):
+        conv_block_i8(x[..., :6].contiguous(), k[:, :, :6].contiguous(), so,
+                      ring, scale)
+    with pytest.raises(ValueError):
+        conv1_block_i8(x, k, so, ring, scale)
+    with pytest.raises(TypeError):
+        conv_block_i8(x, k.float(), so, ring, scale)
 
 
 @pytest.mark.parametrize("h,w", [(144, 256), (143, 256), (3, 3)])
@@ -546,6 +644,79 @@ def test_quantized_slice_on_card_matches_cpu(cuda_dev, precision,
     np.testing.assert_allclose(conf, cpu_conf, rtol=0, atol=QUANT_CONF_TOL)
 
 
+@pytest.mark.parametrize("pallas_preprocess", [False, True])
+def test_int8_slice_on_card_matches_cpu(cuda_dev, pallas_preprocess):
+    """The device loop at ``int8_mxu`` on the card against the CPU:
+    identical classes, conf within QUANT_CONF_TOL (the rings are a bf16
+    conv, cuDNN's summation order against the CPU's), and the int8 block
+    kernels launched (default: layer 1 and two mid-stack blocks a batch;
+    --pallas-preprocess: the resize kernel, a dense layer 1 in plain
+    PyTorch and two mid-stack blocks), no other block kernel."""
+    shape = (40, 360, 640, 3) if pallas_preprocess else (40, 144, 256, 3)
+    frames = np.random.default_rng(4).integers(0, 256, shape,
+                                               dtype=np.uint8)
+    opts = ({"device_resize": (144, 256), "pallas_preprocess": True}
+            if pallas_preprocess else {})
+
+    def run(dev):
+        net, _ = load_default_net(dev, "int8_mxu")
+        return classify_batches(batch_frames(iter(frames), 16), net,
+                                batch_size=16, length=40, print_every=0,
+                                **opts)
+
+    def counts():
+        return (resize_normalize.launches, conv1_block.launches,
+                conv_block.launches, conv1_block_i8.launches,
+                conv_block_i8.launches)
+
+    cpu_conf, cpu_pred, _ = run(torch.device("cpu"))
+    before = counts()
+    conf, pred, stats = run(cuda_dev)
+    assert stats.batches == 3
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        (3, 0, 0, 0, 6) if pallas_preprocess else (0, 0, 0, 3, 6))
+    np.testing.assert_array_equal(pred, cpu_pred)
+    np.testing.assert_allclose(conf, cpu_conf, rtol=0, atol=QUANT_CONF_TOL)
+
+
+def test_device_smooth_on_card_matches_cpu(cuda_dev):
+    """The smoother on the card gives the CPU's table, means bit for bit
+    (each f32 operation rounds the same on both)."""
+    from cut_detection_tpu_torch.segmentation.device_glue import device_smooth
+
+    rng = np.random.default_rng(3)
+    pred = np.repeat(rng.integers(0, 3, 900), rng.integers(1, 40, 900))
+    pred = pred.astype(np.int32)
+    conf = rng.uniform(1, 6, pred.size).astype(np.float32)
+    cpu = device_smooth(T(conf), T(pred), max_segments=1024)
+    card = device_smooth(T(conf).to(cuda_dev), T(pred).to(cuda_dev),
+                         max_segments=1024)
+    assert card[3] == cpu[3]
+    for i in (0, 1, 2, 4, 5):
+        assert torch.equal(card[i].cpu(), cpu[i]), i
+
+
+def test_profile_on_card_traces_the_kernels(cuda_dev, tmp_path):
+    """``--profile DIR`` on the card writes a trace that holds the card's
+    kernels, and the CSV is the reference's."""
+    if importlib.util.find_spec("cv2") is None:
+        pytest.skip("needs cv2 to decode the golden clips")
+    from cut_detection_tpu_torch.cli.segment_video import main
+
+    out, trace = str(tmp_path / "out.csv"), tmp_path / "trace"
+    main([os.path.join(GOLDEN, "clip.mp4"), "--transfer", "bgr",
+          "--output_path", out, "--print-every", "0", "--profile",
+          str(trace)])
+    (name,) = os.listdir(trace)
+    with open(trace / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    with open(out, "rb") as f, open(os.path.join(GOLDEN,
+                                                 "ref_segments.csv"),
+                                    "rb") as g:
+        assert f.read() == g.read()
+
+
 def test_bench_block_stage_on_card(cuda_dev):
     """The bench entry point's block stage at batch 16: K1 -> K4 -> K4 ->
     head equals K1 -> K3 -> K3 -> head and holds the shipped net's classes
@@ -627,7 +798,8 @@ def test_on_device_preprocess_on_card_matches_cpu(cuda_dev,
 @pytest.mark.parametrize("flags", [
     [], ["--device-resize"], ["--device-resize", "--pallas-preprocess"],
     ["--precision", "bfloat16"], ["--precision", "bfloat16_full"],
-    ["--precision", "uint8_pool"], ["--precision", "uint8_chain"]])
+    ["--precision", "uint8_pool"], ["--precision", "uint8_chain"],
+    ["--precision", "int8_mxu"], ["--device-glue"]])
 @pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
                                       ("clip_odd.mp4",
                                        "ref_segments_odd.csv")])

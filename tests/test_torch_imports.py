@@ -138,3 +138,27 @@ def test_yuv420_transfer_runs_without_jax(tmp_path, decode_process):
     with open(out, "rb") as f, open(os.path.join(
             REPO, "tests", "golden", "ref_segments.csv"), "rb") as g:
         assert f.read() == g.read()
+
+
+def test_int8_device_glue_and_profile_run_without_jax(tmp_path):
+    """``--precision int8_mxu --device-glue --profile DIR`` with jax and
+    the JAX package blocked: the int8 blocks, the smoother on the device
+    and the profiler hook import only the port, and the golden clip's
+    CSV is the reference's byte for byte, with a trace file in DIR."""
+    out = str(tmp_path / "out.csv")
+    trace = str(tmp_path / "trace")
+    clip = os.path.join(REPO, "tests", "golden", "clip.mp4")
+    proc = _run(f"""
+        from cut_detection_tpu_torch.cli.segment_video import main
+        main([{clip!r}, "--cpu", "--transfer", "bgr", "--output_path",
+              {out!r}, "--print-every", "0", "--decode-process", "off",
+              "--precision", "int8_mxu", "--device-glue", "--profile",
+              {trace!r}])
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    with open(out, "rb") as f, open(os.path.join(
+            REPO, "tests", "golden", "ref_segments.csv"), "rb") as g:
+        assert f.read() == g.read()
+    assert [n for n in os.listdir(trace) if n.endswith(".json")]

@@ -308,11 +308,24 @@ def test_available_decoder(monkeypatch, cv2_present, native_built):
 @pytest.mark.parametrize("flags", [
     ["--precision", "int8_mxu"], ["--device-glue"], ["--profile", "trace_dir"],
 ])
-def test_cli_refuses_unported_flags(capsys, flags):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["clip.mp4", "--cpu", *flags])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_refuses_unported_flags(tmp_path, flags):
+    """The three JAX-CLI options the port once refused now run: each
+    writes the JAX CLI's CSV with the same option (and the reference's),
+    and ``--profile`` leaves a trace file in its directory."""
+    clip = os.path.join(GOLDEN, "clip.mp4")
+    out, theirs = str(tmp_path / "out.csv"), str(tmp_path / "jax.csv")
+    flags = [str(tmp_path / f) if f == "trace_dir" else f for f in flags]
+    cli.main([clip, "--cpu", "--transfer", "bgr", "--output_path", out,
+              "--print-every", "0", *flags])
+    jax_segment(clip, theirs, print_every=0, transfer="bgr",
+                precision=flags[1] if flags[0] == "--precision"
+                else "float32", device_glue=flags == ["--device-glue"])
+    with open(out, "rb") as f, open(theirs, "rb") as g, open(
+            os.path.join(GOLDEN, "ref_segments.csv"), "rb") as r:
+        assert f.read() == g.read() == r.read()
+    if flags[0] == "--profile":
+        traces = os.listdir(flags[1])
+        assert len(traces) == 1 and traces[0].endswith(".json")
 
 
 @pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),

@@ -275,7 +275,7 @@ def test_step_matches_jax(precision, opts, tol):
 
 def test_precision_is_a_property_of_the_net():
     """One state dict at every rung; the blocks carry the rung's
-    ``compute_dtype``; ``int8_mxu``, not ported, is refused."""
+    ``compute_dtype``; every rung is ported, ``int8_mxu`` the last."""
     nets = {p: load_default_net("cpu", p)[0] for p in PORTED_PRECISIONS}
     sd = nets["float32"].state_dict()
     for p, net in nets.items():
@@ -287,8 +287,11 @@ def test_precision_is_a_property_of_the_net():
         assert f"precision={p}" in repr(net)
         for k, v in net.state_dict().items():
             torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
+    assert "int8_mxu" in nets
+    assert {layer.compute_dtype
+            for layer in nets["int8_mxu"].conv.conv_layers} == {"int8_mxu"}
     with pytest.raises(ValueError, match="not yet ported"):
-        GluedNet(nets["float32"].model_params, "int8_mxu")
+        GluedNet(nets["float32"].model_params, "int4")
 
 
 @pytest.mark.parametrize("precision,kernel_dtype", [
