@@ -8,9 +8,12 @@ Phases, each of which raises on failure:
              card's name and power limit;
 2. build   — compiles every kernel from ``cut_detection_tpu_torch/csrc``
              with nvcc and prints the build time and ptxas report (no
-             spills allowed), and the HGMMA (wgmma) instructions of each
-             tensor-core kernel in the library's SASS (none fails), the
-             two layer-1 ones (``conv1_block``'s bf16 instances) named;
+             spills allowed), and the wgmma instructions of each
+             tensor-core kernel in the library's SASS: HGMMA in the bf16
+             instances, IGMMA (s8) in the int8 ones, none of the other
+             kind and no IDP.4A (dp4a) anywhere (any miss fails), the
+             three layer-1 ones (``conv1_block``'s bf16, bf16_xla and
+             i8 instances) named;
 3. kernels — each kernel instance against its plain PyTorch version on
              the card at the main path's shapes (batch 128, seeded
              inputs), with the max error, the tolerance (for the
@@ -34,7 +37,11 @@ Phases, each of which raises on failure:
              48x85 on layer 1's codes and at 16x28 on layer 2's, the
              prod net's weights and rings; max diff 0; the library's
              yardstick is cuDNN's f32 convolution of the same integer
-             values, TF32 off: PyTorch has no int8 convolution on CUDA);
+             values, TF32 off: PyTorch has no int8 convolution on CUDA;
+             beside it ``torch._int_mm``, cuBLASLt's int8 GEMM with
+             int32 sums, of an im2col made outside the timed call, the
+             conv's sums alone, checked against the plain sums on two
+             frames; the earlier design's times printed beside);
 4. slice   — the prod classifier over a seeded synthetic stream of
              144x256 frames through the pipeline's device loop, on the
              card and on the CPU (plain versions): identical classes and
@@ -149,11 +156,13 @@ BENCH_STEPS = 3         # calls per timed loop of the bench_fused phase
 # H100 SXM peaks (NVIDIA's data sheet, dense): the least time of a kernel
 # is the larger of its bytes over the memory rate and its operations over
 # the rate of their type.
-LAYER1_MMA_KERNELS = 2  # conv1_block's bf16 and bf16_xla
-# The earlier layer-1 design's readings (one block per pooled row and
-# frame, f32 FMAs for every instance, no tensor cores), with the
-# mid-stack blocks and the steps of that tree, from this script on an
-# NVIDIA H100 80GB HBM3 at 700.00 W; printed beside this run's.
+LAYER1_MMA_KERNELS = 3  # conv1_block's bf16, bf16_xla and i8
+# The earlier designs' readings, from this script on an NVIDIA H100 80GB
+# HBM3 at 700.00 W, printed beside this run's: layer 1 before its
+# tensor-core route (one block per pooled row and frame, f32 FMAs for
+# every instance), with the mid-stack blocks and the steps of that tree;
+# the int8 blocks on __dp4a (one call / a call's share of 50 streamed, at
+# 144x256, 48x85 and 16x28) and the int8_mxu step of their tree.
 EARLIER_MS = {"conv1_block[f32]": 0.4425, "conv1_block[bf16]": 0.4492,
               "conv1_block[bf16_xla]": 0.4462, "conv_block[f32]": 0.6154,
               "conv_block[bf16_operands]": 0.2252,
@@ -161,9 +170,12 @@ EARLIER_MS = {"conv1_block[f32]": 0.4425, "conv1_block[bf16]": 0.4492,
               "conv_block[bf16_xla_f32]": 0.0980,
               "conv_block[bf16_out]": 0.0978, "conv_block[cm_bf16]": 0.3728,
               "conv_block[cm_f32]": 0.3102, "resize_normalize": 0.0861}
+EARLIER_I8_MS = {(144, 256): (0.2873, 0.2651), (48, 85): (0.3909, 0.3462),
+                 (16, 28): (0.0996, 0.0684)}
 EARLIER_STEP_MS = {"float32": 1.3493, "bfloat16": 0.9449,
                    "bfloat16_full": 0.7908, "uint8_pool": 9.4468,
-                   "uint8_chain": 9.0933, "host": 1.3342}
+                   "uint8_chain": 9.0933, "int8_mxu": 1.0319,
+                   "host": 1.3342}
 EARLIER_FPS = {"loop": 39875.9, "float32": 31629.0, "bfloat16": 32075.7,
                "bfloat16_full": 32727.7, "uint8_pool": 11765.2,
                "uint8_chain": 12257.4, "l1_fused": 218766.5,
@@ -248,29 +260,46 @@ def phase_build():
             spills += 1
     if spills:
         raise AssertionError(f"ptxas reports spills in {spills} kernels")
-    # The tensor-core kernels must issue wgmma: HGMMA in their SASS.
+    # The tensor-core kernels must issue wgmma: HGMMA (bf16) or IGMMA (s8,
+    # the int8 instances, Epilogue::kI8 = 3 in their mangled names) in
+    # their SASS, and none of the other kind; no kernel runs dp4a.
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    hgmma, name = {}, None
+    ops = ("HGMMA", "IGMMA", "IDP.4A")
+    counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            hgmma[name] = 0
-        elif name is not None and "HGMMA" in line:
-            hgmma[name] += 1
-    mma = {n: c for n, c in hgmma.items() if "block_mma" in n}
-    log(f"build: {len(mma)} tensor-core kernels, HGMMA instructions "
-        f"{sorted(set(mma.values()))} each ({sum(mma.values())} in all)")
-    if not mma or 0 in mma.values():
-        raise AssertionError("a tensor-core kernel issues no HGMMA")
-    # Layer 1's (conv1_block_mma): the bf16 and bf16_xla instances.
+            counts[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                counts[name][op] += op in line
+
+    def epilogue(n):
+        return (re.search(r"EpilogueE(\d)", n) or [None, "?"])[1]
+
+    mma = {n: c for n, c in counts.items() if "block_mma" in n}
+    i8 = {n: c for n, c in mma.items() if epilogue(n) == "3"}
+    for kind, group in (("HGMMA", {n: c for n, c in mma.items()
+                                   if n not in i8}), ("IGMMA", i8)):
+        per = [c[kind] for c in group.values()]
+        log(f"build: {len(group)} {kind} tensor-core kernels, {kind} "
+            f"instructions {sorted(set(per))} each ({sum(per)} in all)")
+        other = "IGMMA" if kind == "HGMMA" else "HGMMA"
+        if not group or 0 in per or any(c[other] for c in group.values()):
+            raise AssertionError(f"a tensor-core kernel issues no {kind}, "
+                                 f"or issues {other}")
+    dp4a = sorted(n for n, c in counts.items() if c["IDP.4A"])
+    log(f"build: IDP.4A (dp4a) in {len(dp4a)} kernels")
+    if dp4a:
+        raise AssertionError(f"kernels run dp4a: {dp4a}")
+    # Layer 1's (conv1_block_mma): the bf16, bf16_xla and i8 instances.
     layer1 = {n: c for n, c in mma.items() if "conv1_block_mma" in n}
     for n, c in sorted(layer1.items()):
-        epi = {"1": "bf16", "2": "bf16_xla"}.get(
-            (re.search(r"EpilogueE(\d)", n) or [None, "?"])[1], "?")
-        log(f"build: layer-1 tensor-core kernel conv1_block[{epi}]: {c} "
-            "HGMMA")
+        epi = {"1": "bf16", "2": "bf16_xla", "3": "i8"}.get(epilogue(n), "?")
+        log(f"build: layer-1 tensor-core kernel conv1_block[{epi}]: "
+            f"{c['HGMMA']} HGMMA, {c['IGMMA']} IGMMA")
     if len(layer1) != LAYER1_MMA_KERNELS:
         raise AssertionError(f"{len(layer1)} layer-1 tensor-core kernels in "
                              f"the library, expected {LAYER1_MMA_KERNELS}")
@@ -532,6 +561,22 @@ def phase_kernels(dev):
     return results
 
 
+def i8_im2col(x_i8, k_i8):
+    """The int8 conv as one GEMM for ``torch._int_mm``: NHWC int8 ``x``
+    as zero-padded im2col rows ``[B*H*W, K]`` in (dy, dx, c) order, and
+    the HWIO kernel as ``[K, Cout]``, K = 9 * Cin zero-padded to a
+    multiple of 8 (cuBLASLt's int8 GEMM needs it: layer 1's 27 -> 32)."""
+    import torch.nn.functional as F
+
+    b, h, w, c = x_i8.shape
+    k = -(-9 * c // 8) * 8
+    cols = F.pad(x_i8, (0, 0, 1, 1, 1, 1)).unfold(1, 3, 1).unfold(2, 3, 1)
+    cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(b * h * w, 9 * c)
+    wmat = k_i8.reshape(9 * c, k_i8.shape[-1])
+    return (F.pad(cols, (0, k - 9 * c)).contiguous(),
+            F.pad(wmat, (0, 0, 0, k - 9 * c)).contiguous())
+
+
 def i8_kernels(dev, rng, record, library_conv, bound):
     """The ``int8_mxu`` blocks against their plain versions with a max
     diff of 0, with the prod net's folded chain (weights, scales and
@@ -540,8 +585,11 @@ def i8_kernels(dev, rng, record, library_conv, bound):
     48x85 and on layer 2's at 16x28.  Rows at the main path's shapes
     (layer 1, layer 2): the library's yardstick is cuDNN's f32
     convolution of the same integer values (the shifted pixels or the
-    codes, and the int8 weights), TF32 off, the conv alone; the bound
-    counts the ops on the int8 peak."""
+    codes, and the int8 weights), TF32 off, the conv alone; beside it
+    (``int_mm_ms``) ``torch._int_mm`` of the conv as a GEMM on an
+    im2col made outside the timed call, its int32 sums checked against
+    the plain ones on two frames; the bound counts the ops on the int8
+    peak.  The earlier design's times are printed beside each shape's."""
     from cut_detection_tpu_torch.models.assembly import (
         GluedNet,
         fold_preprocess,
@@ -549,6 +597,7 @@ def i8_kernels(dev, rng, record, library_conv, bound):
         precompute_rings,
     )
     from cut_detection_tpu_torch.ops.kernels import conv_block_i8 as k8
+    from cut_detection_tpu_torch.ops.nn import conv2d_same_i8_plain
 
     base, _ = load_default_net(dev, "int8_mxu")
     net = GluedNet(base.model_params, "int8_mxu")
@@ -581,6 +630,20 @@ def i8_kernels(dev, rng, record, library_conv, bound):
                      bound((x, k, so, ring, scale), got, hh, ww, cin,
                            k.shape[-1], "i8"),
                      stream_ms(lambda: fn(*args)))
+        x_i8 = ints.to(torch.int8)
+        cols, wmat = i8_im2col(x_i8, k)
+        sums = torch._int_mm(cols[:2 * hh * ww], wmat)
+        want = conv2d_same_i8_plain(x_i8[:2], k).reshape(sums.shape)
+        if not torch.equal(sums, want):
+            raise AssertionError(f"torch._int_mm's sums at {tuple(x.shape)} "
+                                 "differ from the plain conv's")
+        row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, wmat))
+        del cols
+        was = EARLIER_I8_MS[(hh, ww)]
+        log(f"kernel {name}[i8] {tuple(x.shape)}: torch._int_mm "
+            f"{tuple(wmat.shape)} GEMM {row['int_mm_ms']:.4f} ms (its sums "
+            f"equal the plain conv's on two frames); the __dp4a design "
+            f"{was[0]} ms, {was[1]} ms streamed")
         out.setdefault(f"{name}[i8]", row)
         x = got
     return out
@@ -1632,9 +1695,9 @@ KERNEL_ROWS = (
     ("yuv420_to_bgr", "yuv420", "cut_detection_tpu_torch/csrc/"
      "yuv420_to_bgr.cu", "cut_detection_tpu/ops/yuv.py:79"),
     ("conv1_block[i8]", "int8_mxu", "cut_detection_tpu_torch/csrc/"
-     "conv_block_i8.cu", "cut_detection_tpu/models/layers.py:229"),
+     "conv_block.cu", "cut_detection_tpu/models/layers.py:229"),
     ("conv_block[i8]", "int8_mxu", "cut_detection_tpu_torch/csrc/"
-     "conv_block_i8.cu", "cut_detection_tpu/models/layers.py:229"),
+     "conv_block.cu", "cut_detection_tpu/models/layers.py:229"),
 )
 # The rows whose ``replaces`` is an op the JAX package leaves to XLA (no
 # Pallas kernel): each row's ``replaces_kind`` says which it is.

@@ -4,6 +4,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace cutdet {
@@ -58,8 +59,12 @@ __device__ __forceinline__ float operand(const T* p) {
 //              product with bf16(s) and its sum with bf16(t).  The last
 //              rounding is the store's: a bf16 output rounds the sum, an
 //              f32 one keeps it, as XLA does where it fuses that sum into
-//              an f32 consumer.
-enum class Epilogue { kF32, kRoundAct, kXla };
+//              an f32 consumer;
+//   kI8        the int8_mxu block's (int32 accumulators): per conv pixel
+//              z = f32(acc) * so[c] + ring[c] before the pool, since the
+//              ring varies by pixel; then quantize_i8 of the window's
+//              largest z.
+enum class Epilogue { kF32, kRoundAct, kXla, kI8 };
 
 template <Epilogue E>
 __device__ __forceinline__ float epilogue(float acc, float bias, float s,
@@ -75,6 +80,28 @@ __device__ __forceinline__ float epilogue(float acc, float bias, float s,
     if constexpr (E == Epilogue::kRoundAct) m = round_to<bf16>(m);
     return bn_affine(m, s, t);
   }
+}
+
+// The int8_mxu block's z of a conv pixel from its sum as f32, sum * so +
+// ring, with two roundings as the plain version's separate torch ops (no
+// contraction).  The int32 sum is exact and below 2^24 in magnitude at
+// the prod net's widths, so its f32 is exact too; __int2float_rn rounds
+// larger ones as torch's conversion does.
+__device__ __forceinline__ float dequant_i8(float sum, float so, float ring) {
+  return __fadd_rn(__fmul_rn(sum, so), ring);
+}
+
+// The int8_mxu code of a pooled z: clip(rint(relu(z) / scale) - 128, -128,
+// 127), each f32 step rounded as the plain version's separate torch ops
+// round (an IEEE division, no contraction).  ReLU and the quantization are
+// nondecreasing in z, so the code of the window's largest z is the largest
+// of its nine codes: one division per output instead of nine.  A z <= 0
+// is code -128 (relu(z) / scale = 0) without the division: a zero
+// dividend sends the IEEE division down its slow path.
+__device__ __forceinline__ uint32_t quantize_i8(float z, float scale) {
+  const float q = rintf(__fdiv_rn(z > 0.f ? z : scale, scale)) - 128.f;
+  const float c = z > 0.f ? fminf(fmaxf(q, -128.f), 127.f) : -128.f;
+  return static_cast<uint32_t>(__float2int_rn(c)) & 0xFFu;
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }

@@ -32,6 +32,22 @@
 //                  relu(acc + bias) rounded to bf16, f32 BN, bf16 out —
 //                  the bench's K1 graphs;
 //   bf16_xla       XLA's bfloat16_full epilogue — layer 1 of that rung.
+// and the int8_mxu block, which the JAX package leaves to XLA
+// (cut_detection_tpu/models/layers.py:229, apply_conv_block_i8; its conv
+// cut_detection_tpu/ops/nn.py:73, conv2d_same_i8), on s8 wgmma with exact
+// int32 sums (cutdet_conv_block_i8, cutdet_conv1_block_i8):
+//   i8 (I8)        int8 codes in, int8 weights; per conv pixel z = f32(sum)
+//                  * so + ring (the ring varies by pixel, so this comes
+//                  before the pool); the window's largest z to its code
+//                  clip(rint(relu(z) / scale) - 128, -128, 127) — the
+//                  mid-stack blocks of int8_mxu;
+//   i8 (U8I8)      the same from raw uint8 BGR, shifted by -128 as it is
+//                  packed (the shift's constant lives in the ring) —
+//                  layer 1 of int8_mxu.
+// The int8 codes equal the plain version's (ops/kernels/conv_block_i8.py)
+// with a max diff of 0: the sums are exact (|sum| <= 432 * 128 * 127 <
+// 2^24 at the prod widths, so f32(sum) is exact too) and the f32 steps
+// round as its torch ops, in its order.
 // Floor pooling at any H: pooled row r reads conv rows 3r..3r+2, which
 // read input rows 3r-1..3r+3, so the last pooled row reads input row
 // h_eff = 3*(H/3) and nothing below it; where h_eff == H that row is the
@@ -47,7 +63,10 @@
 // -> 48x85x48) does 27 MACs per conv pixel and output channel: ~0.18 ms of
 // f32 FMAs a batch, but in bf16 its bytes (110 KB of uint8 in, 0.4 MB of
 // bf16 out a frame) bound it at ~0.02 ms, and its 6,144 items a batch
-// (3x layer 2's) make the staging and the epilogue the work to hide.
+// (3x layer 2's) make the staging and the epilogue the work to hide.  In
+// int8 (1,979 TOPS) layer 2 is 21.4 G operations a batch, 0.0108 ms,
+// against 25.1 MB in and 2.8 MB out (0.0083 ms); layer 1 is bound by its
+// bytes, 14.2 MB in and 25.1 MB of codes out (0.0117 ms).
 //
 // The design, for both routes: persistent blocks, about one per SM, each
 // walking work items (frame, pooled row).  A block stages its weights in
@@ -79,6 +98,20 @@
 // of the block stages, between items, issuing all its loads before it
 // uses any loaded value.
 //
+// int8 on the same route: k32 steps, whose A fragment is bf16's k16 one
+// byte for byte, so the same ldmatrix.x4 at shifted pixel addresses loads
+// it.  K is ordered (dy, then the 3 * ps contiguous bytes of the kernel
+// row's three staged pixels): with ps = Cin = 48 bytes (three 16-byte
+// units, an odd number) a row is five k32 steps and a tile 15, where 16
+// channels a tap would take 18; the fifth step's last 16 bytes read the
+// next pixel and meet zero weights (16 bytes of slack past the buffer).
+// Other Cin pad the stride to an odd number of 16-byte units with zero
+// channels.  The producer stages int8 NHWC rows by cp.async of 16 bytes
+// (4 where Cin % 16 or the input's alignment rules 16 out).  The int32
+// accumulators go through the same scratch; the pool's thread takes 4
+// channels of a window, z of each of its nine pixels (the ring read as
+// float4, coalesced over channels), the max, the codes, one word a store.
+//
 // Layer 1 (conv1_block_mma, uint8 BGR, 3 channels).  Padding each tap to
 // 16 k would leave 19% of K useful, so the taps are packed: a pixel's
 // B column holds its three dx columns x 3 channels (k = dx * 3 + c) and
@@ -91,7 +124,19 @@
 // max over its registers.  Each warpgroup walks its own items: it copies
 // an item's raw rows two items ahead (cp.async), packs each N tile's B
 // from them and runs it, with one warpgroup barrier a tile and none
-// across the block.
+// across the block.  int8 takes the same tile in bytes: three k32 steps,
+// one per dy, of a pixel's 9 bytes (dx, c), shifted by xor 0x80 as they
+// are packed (the frame's pads hold 0x80, so the 'same' padding is int8
+// 0); N = 80, the nearest s8 width (72 is none), its last 8 columns
+// unused.  One k32 step holding a pixel's whole 3 x 3 x 3 window (27 of
+// 32 bytes) was measured slower at 8 and 16 windows a tile: each B column
+// then gathers three runs of three raw rows, and 16 windows take 72
+// accumulators a thread, too many registers for five warpgroups.  The
+// ring varies by pixel, so the epilogue takes z = f32(sum) * so + ring
+// before the max, except where a window's nine pixels share one ring
+// value (all but the frame's edges) and so >= 0: z is then nondecreasing
+// in the sum, and the max of the nine sums is dequantized once.  The
+// ring's interior row sits in shared memory, once per block.
 //
 // f32 (conv_block_fma): register-blocked FMAs.  Each thread owns 4 output
 // channels x 1 pooled column (9 conv outputs x 4 = 36 accumulators), and
@@ -123,12 +168,14 @@ using cutdet::Epilogue;
 constexpr int kBandCols = 21;                 // conv columns of an M tile
 constexpr int kBandWindows = kBandCols / 3;   // pool windows of an M tile
 // Layer 1 on the tensor cores: output channels on M (64 a group), the
-// conv pixels of 8 pool windows on N (72 = 3 conv rows x 24 columns).
+// conv pixels of 8 pool windows on N (72 = 3 conv rows x 24 columns; in
+// int8 N = 80, the nearest s8 width, its last 8 columns unused).
 constexpr int kConv1Windows = 8;
 constexpr int kConv1Cols = 3 * kConv1Windows;
+constexpr int kConv1NI8 = 80;
+constexpr int kConv1Warpgroups = 5;  // layer 1's tensor-core blocks
 constexpr int kTileRows = 64;                 // wgmma M
 constexpr int kMaxWarpgroups = 4;
-constexpr int kConv1Warpgroups = 5;  // layer 1's tensor-core blocks
 constexpr int kFmaThreads = 384;
 constexpr size_t kSmemLimit = 227 * 1024;
 
@@ -154,9 +201,16 @@ using CmF32 = Instance<bf16, bf16, Epilogue::kRoundAct, float, true, true>;
 using U8F32 = Instance<uint8_t, float, Epilogue::kF32, float>;
 using U8Bf16 = Instance<uint8_t, bf16, Epilogue::kRoundAct, bf16>;
 using U8Bf16Xla = Instance<uint8_t, bf16, Epilogue::kXla, bf16>;
+// The int8_mxu block: int8 codes (layer 1: raw uint8 BGR, shifted by -128
+// as it is packed) and int8 weights, exact int32 sums on s8 wgmma, the kI8
+// epilogue, int8 codes out.
+using I8 = Instance<int8_t, int8_t, Epilogue::kI8, int8_t>;
+using U8I8 = Instance<uint8_t, int8_t, Epilogue::kI8, int8_t>;
 
 template <typename I>
 constexpr bool kU8 = std::is_same_v<typename I::in_t, uint8_t>;
+template <typename I>
+constexpr bool kI8 = I::epi == Epilogue::kI8;
 
 inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
@@ -227,13 +281,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // [0, 16) and [16 + 3W, rs) of each row once) and for rows outside it.
 constexpr int kRawLead = 16;
 
-// Zero the bytes of ``rows`` raw rows outside the frame's columns.
+// Set the bytes of ``rows`` raw rows outside the frame's columns to
+// ``fill``: 0, or 0x80 where the packing shifts bytes by -128.
 __device__ void zero_raw_pads(unsigned char* raw, int rows, int rs, int W,
-                              int t, int nt) {
+                              int t, int nt, unsigned char fill = 0) {
   const int tail = rs - kRawLead - 3 * W;
   for (int i = t; i < rows * (kRawLead + tail); i += nt) {
     const int row = i / (kRawLead + tail), e = i - row * (kRawLead + tail);
-    raw[row * rs + (e < kRawLead ? e : 3 * W + e)] = 0;
+    raw[row * rs + (e < kRawLead ? e : 3 * W + e)] = fill;
   }
 }
 
@@ -293,10 +348,13 @@ enum class Staging { kCopy, kF32x4, kElement };
 
 struct MmaPlan {
   Shape s;
-  int cpad;    // Cin rounded up to 16
-  int ps;      // staged pixel stride, bf16 elements (cpad + 8)
-  int kc;      // k16 chunks per tap
-  int steps;   // k16 steps: 9 * kc
+  int cpad;    // bf16: Cin rounded up to 16
+  int ps;      // staged pixel stride, elements: bf16 cpad + 8; int8 an odd
+               // number of 16-byte units >= Cin
+  int kc;      // k steps per tap (bf16, k16) or per kernel row (int8, k32)
+  int steps;   // k steps: 9 * kc (bf16), 3 * kc (int8)
+  int chunk;   // int8: bytes a cp.async stages (16, or 4 where the input's
+               // channels or alignment rule 16 out)
   int tiles;   // M tiles per item
   int wst;     // staged columns: 21 * tiles + 2
   int nwg;     // consumer warpgroups per block (one more stages)
@@ -546,11 +604,79 @@ __device__ void stage_weights_mma(const typename I::w_t* __restrict__ w,
   }
 }
 
+// int8: stage item ``item``'s five input rows, all columns (staged column
+// 0 is input column -1), as int8 [row][column][ps] by cp.async of
+// ``p.chunk`` bytes, zero-filled outside the input and in channels >= Cin;
+// run by the producer's ``nt`` threads.
+__device__ void stage_mma_i8(const int8_t* __restrict__ x, unsigned char* dst,
+                             int item, const MmaPlan& p, int t, int nt) {
+  const Shape& s = p.s;
+  const int b = item / s.Hp, r = item - b * s.Hp;
+  const int8_t* xb = x + static_cast<size_t>(b) * s.H * s.W * s.Cin;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int chunks = p.ps / p.chunk;
+  const int total = cutdet::kRowsStaged * p.wst * chunks;
+  for (int i = t; i < total; i += nt) {
+    const int ch = i % chunks;
+    const int pix = i / chunks;
+    const int sr = pix / p.wst, col = pix - sr * p.wst;
+    const int y = 3 * r - 1 + sr, xc = col - 1;
+    const bool valid = y >= 0 && y < s.H && xc >= 0 && xc < s.W &&
+                       ch * p.chunk < s.Cin;
+    const int8_t* src =
+        valid ? xb + (static_cast<size_t>(y) * s.W + xc) * s.Cin + ch * p.chunk
+              : xb;
+    const uint32_t at = base + pix * p.ps + ch * p.chunk;
+    if (p.chunk == 16) {
+      cutdet::cp_async16(at, src, valid);
+    } else {
+      cutdet::cp_async4(at, src, valid);
+    }
+  }
+  cutdet::cp_async_wait_all();
+}
+
+// int8: the weights of output channels n0..n0+N-1, once per block, in
+// wgmma's K-major layout without swizzle (k step st, channel n, byte kk at
+// core matrix (st, n/8, kk/16), row n%8, byte kk%16).  Step st reads
+// kernel row dy = st / kc at bytes 32 * (st % kc) + kk of the three staged
+// pixels that row covers, each ps bytes: tap dx = that / ps, channel c =
+// that % ps.  Zero where c >= Cin (the staged stride's pad), dx > 2 (the
+// last step's bytes past the third pixel, which read into the next one)
+// or n0 + n >= Cout.  A thread packs 16 bytes of one channel and step.
+template <int N>
+__device__ void stage_weights_i8(const int8_t* __restrict__ w,
+                                 unsigned char* wsm, int n0,
+                                 const MmaPlan& p) {
+  for (int i = threadIdx.x; i < p.steps * 2 * N; i += blockDim.x) {
+    const int n = i % N, rest = i / N, h = rest % 2, st = rest / 2;
+    const int dy = st / p.kc, o = n0 + n;
+    const int kb0 = (st - dy * p.kc) * 32 + 16 * h;
+    uint32_t words[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int dx = (kb0 + e) / p.ps, c = kb0 + e - dx * p.ps;
+      if (dx < 3 && c < p.s.Cin && o < p.s.Cout) {
+        const int8_t v =
+            w[(static_cast<size_t>(dy * 3 + dx) * p.s.Cin + c) * p.s.Cout + o];
+        words[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(v))
+                        << (8 * (e % 4));
+      }
+    }
+    *reinterpret_cast<uint4*>(wsm + ((st * (N / 8) + n / 8) * 2 + h) * 128 +
+                              (n % 8) * 16) =
+        make_uint4(words[0], words[1], words[2], words[3]);
+  }
+}
+
 // Steps a consumer warpgroup keeps in each of its two register sets of A;
-// it divides the step count, 9 * (Cin rounded up to 16) / 16.
+// it divides the step count, 9 * (Cin rounded up to 16) / 16 in bf16 and
+// 3 * kc in int8.
 constexpr int kGroupSteps = 3;
 
-// One M tile (pool windows 7j..7j+6 of the item) on one warpgroup.
+// One M tile (pool windows 7j..7j+6 of the item) on one warpgroup.  For
+// the int8 instance ``bias``, ``scale`` and ``offset`` are the block's so,
+// ring strip and activation scale.
 template <typename I, int N>
 __device__ void mma_tile(uint32_t buf, uint32_t wts, const int* step_off,
                          float* scratch, int j, int item, int n0, int wg,
@@ -560,23 +686,27 @@ __device__ void mma_tile(uint32_t buf, uint32_t wts, const int* step_off,
                          typename I::out_t* __restrict__ out) {
   const int lt = threadIdx.x % 128;
   const int warp = lt / 32, lane = lt % 32;
+  // int32 sums (int8) or f32; bytes of a staged element (int8 or bf16).
+  using Acc = std::conditional_t<kI8<I>, int, float>;
+  constexpr int kElem = kI8<I> ? 1 : 2;
 
-  // This lane's ldmatrix row: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
-  // of its warp's 16 rows, as mma.sync's m16k16 A fragment.
+  // This lane's ldmatrix row: matrices (rows 0-7 | 8-15) x (k bytes 0-15 |
+  // 16-31) of its warp's 16 rows, as mma.sync's m16k16 bf16 (m16k32 s8) A
+  // fragment.
   int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   if (row >= 3 * kBandCols) row = 3 * kBandCols - 1;  // the pad row
   const int cy = row / kBandCols, cx = row - cy * kBandCols;
   const uint32_t a_base =
-      buf + ((cy * p.wst + kBandCols * j + cx) * p.ps + (lane >> 4) * 8) * 2;
-  // B of a step: N rows (output channels) x 16 k, core matrices 128 bytes
-  // apart along k and 256 bytes apart along N.
+      buf + (cy * p.wst + kBandCols * j + cx) * p.ps * kElem + (lane >> 4) * 16;
+  // B of a step: N rows (output channels) x 32 bytes of k, core matrices
+  // 128 bytes apart along k and 256 bytes apart along N.
   auto b_desc = [&](int step) {
     return cutdet::smem_desc(wts + step * N * 32, 128, 256);
   };
 
-  float d[N / 2];
+  Acc d[N / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) d[i] = 0;
   using Set = uint32_t[kGroupSteps][4];
   Set a0, a1;
   auto load = [&](Set& a, int s0) {
@@ -587,8 +717,13 @@ __device__ void mma_tile(uint32_t buf, uint32_t wts, const int* step_off,
   auto issue = [&](Set& a, int s0) {
     cutdet::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kGroupSteps; ++i)
-      cutdet::Wgmma<N>::mma(d, a[i], b_desc(s0 + i));
+    for (int i = 0; i < kGroupSteps; ++i) {
+      if constexpr (kI8<I>) {
+        cutdet::WgmmaS8<N>::mma(d, a[i], b_desc(s0 + i), 1);
+      } else {
+        cutdet::Wgmma<N>::mma(d, a[i], b_desc(s0 + i));
+      }
+    }
     cutdet::wgmma_commit();
   };
 #pragma unroll
@@ -610,59 +745,113 @@ __device__ void mma_tile(uint32_t buf, uint32_t wts, const int* step_off,
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) cutdet::fence_operand(d[i]);
 
-  // Accumulators to shared memory, [64][N + 8] f32: thread (warp, lane)
-  // holds rows 16*warp + lane/4 (+8), columns 8i + 2*(lane%4) (+1).
+  // Accumulators to shared memory, [64][N + 8] f32 or int32: thread (warp,
+  // lane) holds rows 16*warp + lane/4 (+8), columns 8i + 2*(lane%4) (+1).
   constexpr int kStride = N + 8;
+  using Acc2 = std::conditional_t<kI8<I>, int2, float2>;
+  Acc* acc = reinterpret_cast<Acc*>(scratch);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
     const int c = 8 * i + 2 * t;
-    *reinterpret_cast<float2*>(scratch + (warp * 16 + g) * kStride + c) =
-        make_float2(d[4 * i], d[4 * i + 1]);
-    *reinterpret_cast<float2*>(scratch + (warp * 16 + g + 8) * kStride + c) =
-        make_float2(d[4 * i + 2], d[4 * i + 3]);
+    *reinterpret_cast<Acc2*>(acc + (warp * 16 + g) * kStride + c) =
+        Acc2{d[4 * i], d[4 * i + 1]};
+    *reinterpret_cast<Acc2*>(acc + (warp * 16 + g + 8) * kStride + c) =
+        Acc2{d[4 * i + 2], d[4 * i + 3]};
   }
   cutdet::warpgroup_sync(1 + wg);
 
   const Shape& s = p.s;
   const int b = item / s.Hp, r = item - b * s.Hp;
   const int windows = min(kBandWindows, s.Wp - kBandWindows * j);
-  for (int idx = lt; idx < kBandWindows * N; idx += 128) {
-    int q, o;
-    if constexpr (I::out_cm) {
-      q = idx % kBandWindows;
-      o = idx / kBandWindows;
-    } else {
-      o = idx % N;
-      q = idx / N;
+  if constexpr (kI8<I>) {
+    // z = f32(sum) * so + ring for each conv pixel (the ring row of its
+    // conv row's class: 0, interior, H - 1), the max of the window's nine,
+    // its code; four channels a thread, stored as one word.
+    const float* so = bias;
+    const float* qscale = offset;
+    const float* ring[3];
+#pragma unroll
+    for (int wy = 0; wy < 3; ++wy) {
+      const int y = 3 * r + wy;
+      ring[wy] = scale + static_cast<size_t>(y == 0 ? 0 : y == s.H - 1 ? 2 : 1)
+                             * s.W * s.Cout;
     }
-    const int oc = n0 + o;
-    if (q >= windows || oc >= s.Cout) continue;
-    float m = -CUDART_INF_F;
+    for (int idx = lt; idx < kBandWindows * (N / 4); idx += 128) {
+      const int o = 4 * (idx % (N / 4)), q = idx / (N / 4);
+      const int oc = n0 + o;
+      if (q >= windows || oc >= s.Cout) continue;
+      const float4 sv = __ldg(reinterpret_cast<const float4*>(so + oc));
+      const float4 qv = __ldg(reinterpret_cast<const float4*>(qscale + oc));
+      const float so4[4] = {sv.x, sv.y, sv.z, sv.w};
+      const float qs4[4] = {qv.x, qv.y, qv.z, qv.w};
+      float m[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                    -CUDART_INF_F};
 #pragma unroll
-    for (int wy = 0; wy < 3; ++wy)
+      for (int wy = 0; wy < 3; ++wy)
 #pragma unroll
-      for (int wx = 0; wx < 3; ++wx)
-        m = fmaxf(m, scratch[(wy * kBandCols + 3 * q + wx) * kStride + o]);
-    const int px = kBandWindows * j + q;
-    const size_t at =
-        I::out_cm ? ((static_cast<size_t>(b) * s.Cout + oc) * s.Hp + r) * s.Wp
-                        + px
-                  : ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + px) * s.Cout
-                        + oc;
-    cutdet::store(out + at, cutdet::epilogue<I::epi>(m, bias[oc], scale[oc],
-                                                     offset[oc]));
+        for (int wx = 0; wx < 3; ++wx) {
+          const int col = 3 * q + wx;
+          const int4 a = *reinterpret_cast<const int4*>(
+              acc + (wy * kBandCols + col) * kStride + o);
+          const float4 rv = __ldg(reinterpret_cast<const float4*>(
+              ring[wy] + static_cast<size_t>(kBandCols * j + col) * s.Cout +
+              oc));
+          const int sum[4] = {a.x, a.y, a.z, a.w};
+          const float rr[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            m[c] = fmaxf(m[c], cutdet::dequant_i8(__int2float_rn(sum[c]),
+                                                  so4[c], rr[c]));
+        }
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        word |= cutdet::quantize_i8(m[c], qs4[c]) << (8 * c);
+      const int px = kBandWindows * j + q;
+      *reinterpret_cast<uint32_t*>(
+          out + ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + px) * s.Cout +
+          oc) = word;
+    }
+  } else {
+    for (int idx = lt; idx < kBandWindows * N; idx += 128) {
+      int q, o;
+      if constexpr (I::out_cm) {
+        q = idx % kBandWindows;
+        o = idx / kBandWindows;
+      } else {
+        o = idx % N;
+        q = idx / N;
+      }
+      const int oc = n0 + o;
+      if (q >= windows || oc >= s.Cout) continue;
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int wy = 0; wy < 3; ++wy)
+#pragma unroll
+        for (int wx = 0; wx < 3; ++wx)
+          m = fmaxf(m, acc[(wy * kBandCols + 3 * q + wx) * kStride + o]);
+      const int px = kBandWindows * j + q;
+      const size_t at =
+          I::out_cm
+              ? ((static_cast<size_t>(b) * s.Cout + oc) * s.Hp + r) * s.Wp + px
+              : ((static_cast<size_t>(b) * s.Hp + r) * s.Wp + px) * s.Cout + oc;
+      cutdet::store(out + at, cutdet::epilogue<I::epi>(m, bias[oc], scale[oc],
+                                                       offset[oc]));
+    }
   }
   cutdet::warpgroup_sync(1 + wg);  // the scratch is free again
 }
 
 // Threads of a tensor-core block: the consumer warpgroups, and a
-// producer warpgroup where the input can be staged by cp.async (bf16
-// NHWC).
+// producer warpgroup where the input can be staged by cp.async (bf16 or
+// int8 NHWC).
 template <typename I>
 constexpr int kMmaThreads =
     128 * (kMaxWarpgroups +
-           (std::is_same_v<typename I::in_t, bf16> && !I::in_cm ? 1 : 0));
+           ((std::is_same_v<typename I::in_t, bf16> || kI8<I>) && !I::in_cm
+                ? 1
+                : 0));
 
 template <typename I, int N>
 __global__ void __launch_bounds__(kMmaThreads<I>)
@@ -679,15 +868,25 @@ __global__ void __launch_bounds__(kMmaThreads<I>)
   const int wg = threadIdx.x / 128;
   const bool producer = wg == p.nwg;
 
-  stage_weights_mma<I, N>(w, reinterpret_cast<bf16*>(smem), n0, p);
+  if constexpr (kI8<I>) {
+    stage_weights_i8<N>(w, smem, n0, p);
+  } else {
+    stage_weights_mma<I, N>(w, reinterpret_cast<bf16*>(smem), n0, p);
+  }
   cutdet::fence_proxy_async();  // wgmma reads them through the async proxy
-  // Byte offset of each k step's A rows from a lane's own pixel: tap
-  // (dy, dx) and 16-channel chunk cc.
+  // Byte offset of each k step's A rows from a lane's own pixel: bf16, tap
+  // (dy, dx) and 16-channel chunk cc; int8, kernel row dy and 32-byte
+  // chunk cc of the row's three pixels.
   int* step_off = reinterpret_cast<int*>(smem + p.w_bytes);
   for (int st = threadIdx.x; st < p.steps; st += blockDim.x) {
-    const int tap = st / p.kc, cc = st - tap * p.kc;
-    const int dy = tap / 3, dx = tap - dy * 3;
-    step_off[st] = ((dy * p.wst + dx) * p.ps + cc * 16) * 2;
+    if constexpr (kI8<I>) {
+      const int dy = st / p.kc, cc = st - dy * p.kc;
+      step_off[st] = dy * p.wst * p.ps + cc * 32;
+    } else {
+      const int tap = st / p.kc, cc = st - tap * p.kc;
+      const int dy = tap / 3, dx = tap - dy * 3;
+      step_off[st] = ((dy * p.wst + dx) * p.ps + cc * 16) * 2;
+    }
   }
 
   const uint32_t wts = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -704,7 +903,9 @@ __global__ void __launch_bounds__(kMmaThreads<I>)
   const bool coop = p.staging != Staging::kCopy;
   const bool overlap = !coop && p.nbuf == 2;
   auto stage = [&](int it, unsigned char* dst) {
-    if (coop) {
+    if constexpr (kI8<I>) {
+      if (producer) stage_mma_i8(x, dst, it, p, pt, 128);
+    } else if (coop) {
       stage_mma<I>(x, dst, it, p, threadIdx.x, blockDim.x);
     } else if (producer) {
       stage_mma<I>(x, dst, it, p, pt, 128);
@@ -764,7 +965,14 @@ struct Conv1Plan {
   int nwg;     // warpgroups per block
   bool rvec;   // raw rows copied by 16-byte cp.async
   uint32_t tile_bytes, raw_bytes;
+  uint32_t ring_bytes;  // int8: the ring's interior row, once per block
 };
+
+// int8: the block's copy of the ring strip's interior row, [column][64 +
+// 12] floats for every column the tiles reach (zero past W): a warp reads
+// 8 channels at each of 4 windows 6 columns apart, and 6 * 76 = 8 (mod
+// 32) puts those 4 x 8 floats in 32 distinct banks.
+constexpr int kRingStride = 76;
 
 // Layer 1's B tile (N tile j: windows 8j .. 8j+7, conv columns 24j ..
 // 24j+23), taps packed: for staged row sr and conv column c, k = dx * 3 +
@@ -777,8 +985,15 @@ struct Conv1Plan {
 // 2t + u % 2.  A pixel's nine bytes lie together in the raw row at any
 // byte offset: three aligned words, two funnel shifts and integer and add
 // instructions make the bf16s.  One pixel a thread (5 x 24 = 120).
+// In int8 (kInt8) the same geometry in bytes: k is byte k of the column's
+// k32 step, each byte shifted by -128 (xor 0x80); its bytes 9-31 meet zero
+// weights, so the k 16-31 half is never written.  The 'same' padding must
+// then be int8 0, as the plain version pads the shifted frame: the pads
+// around the frame's columns hold 0x80 (zero_raw_pads) and a row outside
+// the frame (input row 3r - 1 + sr) is written as zeros.
+template <bool kInt8>
 __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
-                          const Conv1Plan& p, int lt) {
+                          int r, const Conv1Plan& p, int lt) {
   if (lt >= cutdet::kRowsStaged * kConv1Cols) return;
   const int sr = lt / kConv1Cols, c = lt - sr * kConv1Cols;
   const int o = kRawLead + 3 * (kConv1Cols * j + c - 1);
@@ -791,9 +1006,17 @@ __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
   const int wl = c / 3, u = (wl & 1) * 3 + c % 3;
   uint4* out = reinterpret_cast<uint4*>(
       dst + (sr * 3 + u / 2) * 256 + ((wl >> 1) * 2 + (u & 1)) * 16);
-  out[0] = make_uint4(u8_pair_bf16(b0, 0, b0, 1), u8_pair_bf16(b0, 2, b0, 3),
-                      u8_pair_bf16(b1, 0, b1, 1), u8_pair_bf16(b1, 2, b1, 3));
-  out[8] = make_uint4(u8_pair_bf16(w2 >> sh, 0, 0u, 0), 0u, 0u, 0u);  // k 8
+  if constexpr (kInt8) {
+    const int y = 3 * r - 1 + sr;
+    out[0] = y >= 0 && y < p.s.H
+                 ? make_uint4(b0 ^ 0x80808080u, b1 ^ 0x80808080u,
+                              ((w2 >> sh) & 0xFFu) ^ 0x80u, 0u)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    out[0] = make_uint4(u8_pair_bf16(b0, 0, b0, 1), u8_pair_bf16(b0, 2, b0, 3),
+                        u8_pair_bf16(b1, 0, b1, 1), u8_pair_bf16(b1, 2, b1, 3));
+    out[8] = make_uint4(u8_pair_bf16(w2 >> sh, 0, 0u, 0), 0u, 0u, 0u);  // k 8
+  }
   cutdet::fence_proxy_async();  // wgmma reads the tile through the async proxy
 }
 
@@ -850,6 +1073,109 @@ __device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
   }
 }
 
+// Layer 1's int8 N tile j on one warpgroup: D[64 channels x 80 pixels] =
+// weights (A, in registers) x the packed pixels (B), three k32 steps, one
+// per dy, each overwriting (dy = 0) or adding to the accumulators, which
+// the caller keeps from tile to tile.  D's columns are conv_tile's, so a
+// thread holds, for its channels 16 * warp + g and + 8, the nine pixels
+// of windows 8j + 2t and + 1: z = f32(sum) * so + ring for each, the max
+// of the nine, the code, one byte a window and channel.  Where the nine
+// share one ring value (away from the frame's edges every pixel's ring is
+// the same dot product) and so >= 0, z is nondecreasing in the sum, so
+// the window's largest z is z of its largest sum: one dequantization
+// instead of nine.  The ring of an interior conv row comes from the
+// block's copy ``ring_s``, of the frame's top and bottom rows from the
+// strip ``ring``.  ``par``: so and the activation scale of each channel.
+__device__ void conv1_tile_i8(uint32_t b_tile, const uint32_t (&wa)[3][4],
+                              int (&d)[kConv1NI8 / 2], int j, int b, int r,
+                              int n0, const Conv1Plan& p,
+                              const float (&par)[4], const float* ring_s,
+                              const float* __restrict__ ring,
+                              int8_t* __restrict__ out) {
+#pragma unroll
+  for (int i = 0; i < kConv1NI8 / 2; ++i) cutdet::fence_operand(d[i]);
+  cutdet::wgmma_fence();
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+    cutdet::WgmmaS8<kConv1NI8>::mma(
+        d, wa[dy], cutdet::smem_desc(b_tile + dy * 3 * 256, 128, 256),
+        dy > 0);
+  cutdet::wgmma_commit();
+  cutdet::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kConv1NI8 / 2; ++i) cutdet::fence_operand(d[i]);
+
+  const int lt = threadIdx.x % 128, warp = lt / 32;
+  const int g = (lt % 32) >> 2, t = lt & 3;
+  const Shape& s = p.s;
+  if (n0 + 16 * warp >= s.Cout) return;  // this warp's channels are pads
+  // Conv row 3r is the frame's top row (the ring's row 0) only at r = 0,
+  // and 3r + 2 its bottom row (row 2) only where H = 3 * Hp, at the last r.
+  const bool top = r == 0, bottom = 3 * r + 2 == s.H - 1;
+  int8_t* orow = out + (static_cast<size_t>(b) * s.Hp + r) * s.Wp * s.Cout;
+  // d's index of pixel (cy, cx) of the thread's window v: column 24cy +
+  // 8(u / 2) + 2t + u % 2 with u = 3v + cx (conv1_tile's order).
+  constexpr int kAt[6] = {0, 1, 4, 5, 8, 9};
+  // With no branch inside a window (the stores predicated; windows past
+  // Wp read the ring copy's zero columns) the windows' chains interleave;
+  // the top and bottom rows' items take their ring from the strip.
+  auto pool = [&](auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // channel rows g, g + 8
+      const int c = 16 * warp + g + 8 * h, oc = n0 + c;
+      const float so = par[2 * h];
+      const float* mid = ring_s + c;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int q = kConv1Windows * j + 2 * t + v;
+        float rc[3];  // the ring of the window's columns, interior rows
+#pragma unroll
+        for (int cx = 0; cx < 3; ++cx) rc[cx] = mid[(3 * q + cx) * kRingStride];
+        float m = -CUDART_INF_F;
+        if (!kEdge && rc[0] == rc[1] && rc[1] == rc[2] && so >= 0.f) {
+          int top_sum = d[kAt[3 * v] + 2 * h];
+#pragma unroll
+          for (int u = 1; u < 9; ++u)
+            top_sum = max(top_sum,
+                          d[12 * (u / 3) + kAt[3 * v + u % 3] + 2 * h]);
+          m = cutdet::dequant_i8(__int2float_rn(top_sum), so, rc[0]);
+        } else {
+#pragma unroll
+          for (int cx = 0; cx < 3; ++cx) {
+            const int col = 3 * q + cx;
+#pragma unroll
+            for (int cy = 0; cy < 3; ++cy) {
+              float rv = rc[cx];
+              if constexpr (kEdge) {
+                const size_t at = static_cast<size_t>(min(col, s.W - 1)) *
+                                      s.Cout + min(oc, s.Cout - 1);
+                if (cy == 0 && top) rv = __ldg(ring + at);
+                if (cy == 2 && bottom)
+                  rv = __ldg(ring + static_cast<size_t>(2 * s.W) * s.Cout +
+                             at);
+              }
+              m = fmaxf(m, cutdet::dequant_i8(
+                               __int2float_rn(
+                                   d[12 * cy + kAt[3 * v + cx] + 2 * h]),
+                               so, rv));
+            }
+          }
+        }
+        const uint32_t code = cutdet::quantize_i8(m, par[2 * h + 1]);
+        if (oc < s.Cout && q < s.Wp)
+          orow[static_cast<size_t>(q) * s.Cout + oc] =
+              static_cast<int8_t>(code);
+      }
+    }
+  };
+  if (top || bottom) {
+    pool(std::true_type{});
+  } else {
+    pool(std::false_type{});
+  }
+}
+
 // Layer 1 on the tensor cores (uint8 in, 3 channels, taps packed).  Each
 // thread keeps its A fragments (the weights of its two channels) in
 // registers for the whole kernel.  Each warpgroup walks items of its own,
@@ -865,39 +1191,86 @@ __global__ void __launch_bounds__(128 * kConv1Warpgroups)
                     const float* __restrict__ scale,
                     const float* __restrict__ offset,
                     typename I::out_t* __restrict__ out, Conv1Plan p) {
-  static_assert(std::is_same_v<typename I::w_t, bf16>);
+  static_assert(std::is_same_v<typename I::w_t, bf16> || kI8<I>);
   extern __shared__ __align__(128) unsigned char smem[];
   const Shape& s = p.s;
   const int n0 = blockIdx.y * 64;
   const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
   const int g = (lt % 32) >> 2, t = lt & 3;
   const int oc0 = n0 + 16 * (lt / 32) + g;  // channels oc0 and oc0 + 8
-  unsigned char* mine = smem + wg * (2 * p.tile_bytes + 3 * p.raw_bytes);
+  unsigned char* mine =
+      smem + p.ring_bytes + wg * (2 * p.tile_bytes + 3 * p.raw_bytes);
   unsigned char* raws = mine + 2 * p.tile_bytes;
-  zero_raw_pads(raws, 3 * cutdet::kRowsStaged, p.rs, s.W, lt, 128);
-  // A of k step dy, as mma.sync's m16k16 fragment: rows (channels) oc0 and
-  // oc0 + 8, k 2t, 2t + 1 and 2t + 8, 2t + 9, with k = dx * 3 + c.
-  const unsigned short* wbits = reinterpret_cast<const unsigned short*>(w);
-  auto wt = [&](int dy, int k, int oc) -> uint32_t {
-    return k < 9 && oc < s.Cout ? wbits[((dy * 3 + k / 3) * 3 + k % 3) *
-                                            s.Cout + oc]
-                                : 0u;
-  };
+  zero_raw_pads(raws, 3 * cutdet::kRowsStaged, p.rs, s.W, lt, 128,
+                kI8<I> ? 0x80 : 0);
+  // int8: the ring's interior row for this group's channels (``scale`` is
+  // the strip), zero past them.
+  float* ring_s = reinterpret_cast<float*>(smem);
+  if constexpr (kI8<I>) {
+    auto at = [&](int i, int& col, int& c) {
+      col = i / kRingStride;
+      c = i - col * kRingStride;
+      return col < s.W && c < 64 && n0 + c < s.Cout;
+    };
+    unrolled<8>(
+        kConv1Cols * p.tiles * kRingStride, threadIdx.x, blockDim.x,
+        [&](int i) {
+          int col, c;
+          return at(i, col, c) ? __ldg(scale + (static_cast<size_t>(s.W) +
+                                                col) * s.Cout + n0 + c)
+                               : 0.f;
+        },
+        [&](int i, float v) { ring_s[i] = v; });
+    __syncthreads();
+  }
+  // A of k step dy, as mma.sync's m16k16 bf16 (m16k32 s8) fragment: rows
+  // (channels) oc0 and oc0 + 8, k = dx * 3 + c; bf16: k 2t, 2t + 1 and
+  // 2t + 8, 2t + 9; int8: bytes 4t .. 4t + 3 and 16 + 4t .. 16 + 4t + 3.
   uint32_t wa[3][4];
+  if constexpr (kI8<I>) {
+    const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy)
+    for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int k = 2 * t + (f >> 1) * 8, oc = oc0 + (f & 1) * 8;
-      wa[dy][f] = wt(dy, k, oc) | wt(dy, k + 1, oc) << 16;
-    }
-  float par[6];  // bias, BN scale, BN offset of oc0, then of oc0 + 8
+      for (int f = 0; f < 4; ++f) {
+        const int k0 = 4 * t + (f >> 1) * 16, oc = oc0 + (f & 1) * 8;
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + e < 9 && oc < s.Cout)
+            word |= static_cast<uint32_t>(wb[(dy * 9 + k0 + e) * s.Cout + oc])
+                    << (8 * e);
+        wa[dy][f] = word;
+      }
+  } else {
+    const unsigned short* wbits = reinterpret_cast<const unsigned short*>(w);
+    auto wt = [&](int dy, int k, int oc) -> uint32_t {
+      return k < 9 && oc < s.Cout ? wbits[((dy * 3 + k / 3) * 3 + k % 3) *
+                                              s.Cout + oc]
+                                  : 0u;
+    };
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int k = 2 * t + (f >> 1) * 8, oc = oc0 + (f & 1) * 8;
+        wa[dy][f] = wt(dy, k, oc) | wt(dy, k + 1, oc) << 16;
+      }
+  }
+  // bf16: bias, BN scale, BN offset of oc0, then of oc0 + 8; int8: so and
+  // the activation scale (``bias`` and ``offset``; ``scale`` is the ring).
+  float par[kI8<I> ? 4 : 6];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int oc = oc0 + 8 * h;
-    par[3 * h] = oc < s.Cout ? bias[oc] : 0.f;
-    par[3 * h + 1] = oc < s.Cout ? scale[oc] : 0.f;
-    par[3 * h + 2] = oc < s.Cout ? offset[oc] : 0.f;
+    if constexpr (kI8<I>) {
+      par[2 * h] = oc < s.Cout ? bias[oc] : 0.f;
+      par[2 * h + 1] = oc < s.Cout ? offset[oc] : 1.f;
+    } else {
+      par[3 * h] = oc < s.Cout ? bias[oc] : 0.f;
+      par[3 * h + 1] = oc < s.Cout ? scale[oc] : 0.f;
+      par[3 * h + 2] = oc < s.Cout ? offset[oc] : 0.f;
+    }
   }
   cutdet::warpgroup_sync(1 + wg);  // the pads before the copies
 
@@ -910,6 +1283,8 @@ __global__ void __launch_bounds__(128 * kConv1Warpgroups)
                 lt, 128);
     cutdet::cp_async_commit();
   }
+  // int8: the accumulators, which each tile's first step overwrites.
+  int d[kI8<I> ? kConv1NI8 / 2 : 1] = {};
   for (int k = 0, item = first; item < s.items; ++k, item += step) {
     cutdet::cp_async_wait_group<1>();  // this item's rows have landed
     cutdet::warpgroup_sync(1 + wg);
@@ -918,13 +1293,18 @@ __global__ void __launch_bounds__(128 * kConv1Warpgroups)
                 p.rvec, lt, 128);
     cutdet::cp_async_commit();
     const unsigned char* raw = raws + k % 3 * p.raw_bytes;
+    const int b = item / s.Hp, r = item - b * s.Hp;
     for (int j = 0; j < p.tiles; ++j) {
       // Tile j's B goes to buffer j & 1: the barrier after it also
       // retires every wgmma of tile j - 2, which read that buffer.
-      pack_tile(raw, mine + (j & 1) * p.tile_bytes, j, p, lt);
+      const uint32_t tile = tiles + (j & 1) * p.tile_bytes;
+      pack_tile<kI8<I>>(raw, mine + (j & 1) * p.tile_bytes, j, r, p, lt);
       cutdet::warpgroup_sync(1 + wg);
-      conv1_tile<I>(tiles + (j & 1) * p.tile_bytes, wa, j, item, n0, p, par,
-                    out);
+      if constexpr (kI8<I>) {
+        conv1_tile_i8(tile, wa, d, j, b, r, n0, p, par, ring_s, scale, out);
+      } else {
+        conv1_tile<I>(tile, wa, j, item, n0, p, par, out);
+      }
     }
   }
 }
@@ -941,17 +1321,21 @@ int launch_conv1(const void* x, const void* w, const void* bias,
   p.s = s;
   p.tiles = (s.Wp + kConv1Windows - 1) / kConv1Windows;
   p.rvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && 3 * s.W % 16 == 0;
-  // A row holds the frame's columns and every byte pack_tile reads past
+  // A row holds the frame's columns and every byte the pack reads past
   // them (three words from the last tile's last pixel).
   const int reach = kRawLead + 3 * (kConv1Cols * p.tiles - 1) + 12;
   const int need = kRawLead + 3 * s.W > reach ? kRawLead + 3 * s.W : reach;
   p.rs = (need + 15) / 16 * 16;
   p.raw_bytes = static_cast<uint32_t>(cutdet::kRowsStaged * p.rs);
-  p.tile_bytes = cutdet::kRowsStaged * 3 * 256;
+  // (int8: one more 8-column group, which dy = 2 reads for N's unused
+  // columns 72-79.)
+  p.tile_bytes = (cutdet::kRowsStaged * 3 + (kI8<I> ? 1 : 0)) * 256;
   const size_t per_wg = 2 * p.tile_bytes + 3 * p.raw_bytes;
+  p.ring_bytes = static_cast<uint32_t>(
+      kI8<I> ? align128(size_t(kConv1Cols) * p.tiles * kRingStride * 4) : 0);
   p.nwg = kConv1Warpgroups;
-  while (p.nwg > 1 && p.nwg * per_wg > kSmemLimit) --p.nwg;
-  const size_t smem = p.nwg * per_wg;
+  while (p.nwg > 1 && p.ring_bytes + p.nwg * per_wg > kSmemLimit) --p.nwg;
+  const size_t smem = p.ring_bytes + p.nwg * per_wg;
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = conv1_block_mma<I>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -985,22 +1369,38 @@ int launch_mma(const void* x, const void* w, const void* bias,
   const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   MmaPlan p{};
   p.s = s;
-  p.cpad = (s.Cin + 15) / 16 * 16;
-  p.ps = p.cpad + 8;
-  p.kc = p.cpad / 16;
-  p.steps = 9 * p.kc;
   p.tiles = (s.Wp + kBandWindows - 1) / kBandWindows;
   p.wst = kBandCols * p.tiles + 2;
-  p.staging = Staging::kElement;
-  if (!I::in_cm && x16 && std::is_same_v<In, bf16> && s.Cin % 8 == 0)
+  if constexpr (kI8<I>) {
+    // K ordered (dy, then the 3 * ps contiguous bytes of the row's three
+    // staged pixels) in k32 steps: at Cin = 48, ps = 48 and a row is 5
+    // steps, the fifth's last 16 bytes reading the next pixel against zero
+    // weights.  An odd number of 16-byte units keeps an ldmatrix's eight
+    // rows in eight bank groups.
+    if (s.Cin % 4 || s.Cout % 4) return static_cast<int>(cudaErrorInvalidValue);
+    p.ps = 16 * (((s.Cin + 15) / 16) | 1);
+    p.kc = (3 * p.ps + 31) / 32;
+    p.steps = 3 * p.kc;
     p.staging = Staging::kCopy;
-  if (!I::in_cm && x16 && std::is_same_v<In, float> && s.Cin % 4 == 0)
-    p.staging = Staging::kF32x4;
-  p.wvec = s.Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    p.chunk = s.Cin % 16 == 0 && x16 ? 16 : 4;
+  } else {
+    p.cpad = (s.Cin + 15) / 16 * 16;
+    p.ps = p.cpad + 8;
+    p.kc = p.cpad / 16;
+    p.steps = 9 * p.kc;
+    p.staging = Staging::kElement;
+    if (!I::in_cm && x16 && std::is_same_v<In, bf16> && s.Cin % 8 == 0)
+      p.staging = Staging::kCopy;
+    if (!I::in_cm && x16 && std::is_same_v<In, float> && s.Cin % 4 == 0)
+      p.staging = Staging::kF32x4;
+    p.wvec = s.Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  }
   p.w_bytes = static_cast<uint32_t>(align128(size_t(p.steps) * N * 32));
   p.off_bytes = static_cast<uint32_t>(align128(size_t(p.steps) * 4));
+  // (int8: 16 bytes of slack for the last pixel's read past its row.)
   p.buf_bytes = static_cast<uint32_t>(
-      align128(size_t(cutdet::kRowsStaged) * p.wst * p.ps * 2));
+      align128(size_t(cutdet::kRowsStaged) * p.wst * p.ps * (kI8<I> ? 1 : 2) +
+               (kI8<I> ? 16 : 0)));
   const size_t scratch_wg = size_t(kTileRows) * (N + 8) * 4;
   size_t smem = 0;
   for (int nwg = p.tiles < kMaxWarpgroups ? p.tiles : kMaxWarpgroups;
@@ -1473,6 +1873,28 @@ CUTDET_CONV_BLOCK(cutdet_conv_block_cm_f32, CmF32, false)
 CUTDET_CONV1_BLOCK(cutdet_conv1_block, U8F32, true)
 CUTDET_CONV1_BLOCK(cutdet_conv1_block_bf16, U8Bf16, false)
 CUTDET_CONV1_BLOCK(cutdet_conv1_block_bf16_xla, U8Bf16Xla, false)
+
+// The int8_mxu block: its so (f32 [Cout], the weight scale), ring (f32 [3,
+// W, Cout], the constant term's top, interior and bottom rows) and scale
+// (f32 [Cout], the activation scale) take the places of the other
+// instances' bias, BN scale and BN offset.  Mid-stack: int8 codes [B, H, W,
+// Cin], Cin % 4 == 0; layer 1: uint8 BGR [B, H, W, 3].  Cout % 4 == 0.
+extern "C" int cutdet_conv_block_i8(const void* x, const void* w,
+                                    const void* so, const void* ring,
+                                    const void* scale, void* out, int B,
+                                    int H, int W, int Cin, int Cout,
+                                    void* stream) {
+  return launch<I8, false>(x, w, so, ring, scale, out, B, H, W, Cin, Cout,
+                           stream);
+}
+
+extern "C" int cutdet_conv1_block_i8(const void* x, const void* w,
+                                     const void* so, const void* ring,
+                                     const void* scale, void* out, int B,
+                                     int H, int W, int Cout, void* stream) {
+  return launch<U8I8, false>(x, w, so, ring, scale, out, B, H, W, 3, Cout,
+                             stream);
+}
 
 extern "C" const char* cutdet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,4 +1,4 @@
-"""The ``int8_mxu`` block: ``csrc/conv_block_i8.cu``.
+"""The ``int8_mxu`` block: the int8 instances of ``csrc/conv_block.cu``.
 
 int8 x int8 -> int32 conv3x3 (zero pad 1) -> ``z = zi * so + ring`` ->
 ReLU -> ``clip(rint(z / scale) - 128, -128, 127)`` int8 codes -> max
@@ -6,12 +6,15 @@ pool 3x3/3 (floor).  The JAX package leaves this block to XLA
 (``cut_detection_tpu/models/layers.py:229-280``, the conv
 ``cut_detection_tpu/ops/nn.py:73``, ``conv2d_same_i8``): no Pallas
 kernel lies behind it, and PyTorch has no int8 convolution with int32
-sums on CUDA, so the card runs a hand-written kernel.  Two entry points,
-two rows of the kernel table:
+sums on CUDA, so the card runs hand-written kernels, the int8 instances
+of the block kernel's two tensor-core routes (s8 ``wgmma``, exact int32
+sums).  Two entry points, two rows of the kernel table:
 
 - ``conv1_block_i8``: layer 1 from raw uint8 BGR ``[B, H, W, 3]``, as
-  int8 after a shift by -128 (the shift's constant 128 is in the ring);
-- ``conv_block_i8``: the previous block's int8 codes ``[B, H, W, Cin]``.
+  int8 after a shift by -128 (the shift's constant 128 is in the ring),
+  on layer 1's route (``conv1_block_mma``);
+- ``conv_block_i8``: the previous block's int8 codes ``[B, H, W, Cin]``,
+  on the mid-stack route (``conv_block_mma``).
 
 ``kernel`` is the HWIO int8 kernel and ``so`` its per-output-channel
 scale (``ops.nn.quantize_kernel_i8`` of the kernel with the pending

@@ -213,6 +213,118 @@ def test_conv_block_i8_kernel_widths(cuda_dev, cin, cout):
     assert torch.equal(got.cpu(), conv_block_i8(x, k, so, ring, scale))
 
 
+def _i8_random_args(rng, x, cout, uniform=False):
+    """Seeded int8 weights and a weight scale, ring and activation scale
+    for input ``x`` that spread z = sum * so + ring over the codes' range
+    (sums of unit spread, rings of 0.5, scales of about 1/100).  With
+    ``uniform`` the ring is the same across each row's inner columns (as
+    a conv of a constant canvas gives it, where the layer-1 kernel pools
+    the sums before it dequantizes) and a quarter of the weight scales
+    are negative (where it must not)."""
+    cin = x.shape[-1]
+    k = T(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+    spread = np.sqrt(9 * cin) * 74.0 * 73.0  # of a sum of random products
+    so = rng.uniform(0.5, 1.5, cout) / spread
+    ring = rng.normal(0, 0.5, (3, x.shape[2], cout))
+    if uniform:
+        so *= np.where(rng.uniform(size=cout) < 0.25, -1.0, 1.0)
+        ring[:, 1:-1] = ring[:, 1:2]
+    scale = T(rng.uniform(0.004, 0.012, cout).astype(np.float32))
+    return (k, T(so.astype(np.float32)), T(ring.astype(np.float32)),
+            scale)
+
+
+def _offset_copy(x, nbytes):
+    """A contiguous copy of ``x`` whose data starts ``nbytes`` past an
+    aligned allocation (the kernels' narrower staging paths)."""
+    buf = torch.empty(x.numel() + nbytes, dtype=x.dtype, device=x.device)
+    out = buf[nbytes:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == nbytes % 16
+    return out
+
+
+# (B, H, W, Cin, Cout) at the edges of the mid-stack int8 tiling (3 x 21
+# conv-pixel bands, 7 windows each): W = 85, 86 and 87 (Wp = 28, 28 and
+# 29: the last band full, full with a column no window reads, and one
+# window into a fifth band), so the last pixel's read 16 bytes past its
+# kernel row falls in the buffer's slack; H % 3 = 0, 2 and 1; batches of
+# 1 and 2, fewer items than the persistent grid has blocks; Cout = 40,
+# no s8 wgmma width (a 48-wide tile with zero weight columns), and 16.
+CONV_I8_TILING = [(3, 20, 85, 48, 48), (3, 20, 86, 48, 48),
+                  (3, 20, 87, 48, 48), (1, 47, 85, 48, 48),
+                  (2, 46, 85, 48, 40), (2, 6, 31, 48, 16)]
+
+
+@pytest.mark.parametrize("shape", CONV_I8_TILING)
+def test_conv_block_i8_kernel_tiling(cuda_dev, shape):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x = T(rng.integers(-128, 128, (b, h, w, cin), dtype=np.int8))
+    args = [t.to(cuda_dev) for t in (x, *_i8_random_args(rng, x, cout))]
+    n = conv_block_i8.launches
+    got = conv_block_i8(*args)
+    assert conv_block_i8.launches == n + 1
+    assert torch.equal(got, conv_block_i8_plain(*args))
+
+
+@pytest.mark.parametrize("cin", [*range(4, 68, 4), 96, 128])
+def test_conv_block_i8_kernel_every_cin(cuda_dev, cin):
+    """Every input width the wrapper takes (Cin % 4 == 0): the staged
+    stride padded to an odd number of 16-byte units, staged by 16-byte
+    copies where Cin % 16 == 0 and by 4-byte ones otherwise."""
+    rng = np.random.default_rng(cin)
+    x = T(rng.integers(-128, 128, (2, 11, 25, cin), dtype=np.int8))
+    args = [t.to(cuda_dev) for t in (x, *_i8_random_args(rng, x, 48))]
+    assert torch.equal(conv_block_i8(*args), conv_block_i8_plain(*args))
+
+
+def test_conv_block_i8_kernel_unaligned_input(cuda_dev):
+    """Codes whose data starts 4 bytes past a 16-byte boundary: Cin = 48
+    staged by 4-byte copies."""
+    rng = np.random.default_rng(4)
+    x = T(rng.integers(-128, 128, (3, 48, 85, 48), dtype=np.int8))
+    k, so, ring, scale = (t.to(cuda_dev) for t in _i8_random_args(rng, x, 48))
+    xo = _offset_copy(x.to(cuda_dev), 4)
+    assert torch.equal(conv_block_i8(xo, k, so, ring, scale),
+                       conv_block_i8_plain(xo, k, so, ring, scale))
+
+
+# (B, H, W, Cout) at the edges of layer 1's int8 tiling (16 windows a
+# tile): W = 256, 40, 22, 48 and 99 (Wp = 85, 13, 7, 16 and 33: the last
+# tile partly filled, exactly full, or one window into a third tile; raw
+# rows by 16-byte copies where 3W % 16 == 0, else byte by byte); H % 3 =
+# 0, 2 and 1 and a 3 x 3 frame; batches of 1 and 133; Cout = 32, 40, 48
+# and 64 of a 64-channel group.
+CONV1_I8_TILING = [(1, 144, 256, 48), (133, 143, 40, 48), (2, 142, 22, 64),
+                   (2, 144, 48, 32), (3, 145, 99, 40), (2, 3, 3, 48)]
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("shape", CONV1_I8_TILING)
+def test_conv1_block_i8_kernel_tiling(cuda_dev, shape, uniform):
+    b, h, w, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x = T(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8))
+    args = [t.to(cuda_dev)
+            for t in (x, *_i8_random_args(rng, x, cout, uniform))]
+    n = conv1_block_i8.launches
+    got = conv1_block_i8(*args)
+    assert conv1_block_i8.launches == n + 1
+    assert torch.equal(got, conv1_block_i8_plain(*args))
+
+
+def test_conv1_block_i8_kernel_unaligned_input(cuda_dev):
+    """Frames whose data starts 4 bytes past a 16-byte boundary: raw rows
+    copied byte by byte at W = 256."""
+    x = T(np.random.default_rng(1).integers(0, 256, (3, 144, 256, 3),
+                                            dtype=np.uint8)).to(cuda_dev)
+    k, so, ring, scale = _i8_layers(cuda_dev)[0]
+    xo = _offset_copy(x, 4)
+    assert torch.equal(conv1_block_i8(xo, k, so, ring, scale),
+                       conv1_block_i8_plain(xo, k, so, ring, scale))
+
+
 def test_i8_wrappers_reject_bad_arguments(cuda_dev):
     k, so, ring, scale = _i8_layers(cuda_dev, 48, 84)[1]
     x = torch.zeros(2, 16, 28, 48, dtype=torch.int8, device=cuda_dev)
