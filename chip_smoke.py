@@ -21,8 +21,10 @@ Phases, each of which raises on failure:
              over its one-ulp bound and the count of one-ulp crossings,
              at most 0.1% of the elements), the median times of the
              kernel (one call between two CUDA events, so with the
-             host's time to launch it; and a call's share of 50 enqueued
-             back to back), its plain version and the library's convolution
+             host's time to launch it; a call's share of 50 enqueued
+             back to back; and the same behind a sleep on the card, so
+             that the host stays ahead: the card's own time a call), its
+             plain version and the library's convolution
              (cuDNN, the block's conv alone at the instance's operand
              type), and the least time the card could take (bytes or
              operations, from this run's shapes): layer 1 (f32, K1's
@@ -31,8 +33,12 @@ Phases, each of which raises on failure:
              channel-major ones at 48x85 and 16x28, the resize +
              normalize kernel at 1280x720 -> 256x144, the YUV -> BGR
              kernel on a seeded batch of 128 planes at 144x256 (max
-             diff 0) and on the exhaustive 2^24 (Y, U, V) probe against
-             the host's numpy twin, the int8 blocks of ``int8_mxu``
+             diff 0; also streamed from cold L2, over planes and outputs
+             that rotate through three times the L2) and on the
+             exhaustive 2^24 (Y, U, V) probe against the host's numpy
+             twin, as it is, 2 bytes off a 16-byte boundary and cropped
+             to a width off 16 (the kernel's vector and scalar routes),
+             the int8 blocks of ``int8_mxu``
              (layer 1 on raw pixels at 144x256, the mid-stack block at
              48x85 on layer 1's codes and at 16x28 on layer 2's, the
              prod net's weights and rings; max diff 0; the library's
@@ -119,6 +125,7 @@ one JSON line with every kernel's numbers, and last the result line
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -170,6 +177,10 @@ EARLIER_MS = {"conv1_block[f32]": 0.4425, "conv1_block[bf16]": 0.4492,
               "conv_block[bf16_xla_f32]": 0.0980,
               "conv_block[bf16_out]": 0.0978, "conv_block[cm_bf16]": 0.3728,
               "conv_block[cm_f32]": 0.3102, "resize_normalize": 0.0861}
+# yuv420_to_bgr's first design (one thread per 2x2 luma block) at batch
+# 128, 144x256: one call and streamed (not queued), and its card time a
+# batch in the yuv420 phase's trace.
+EARLIER_YUV_MS = (0.0397, 0.0232, 0.0170)
 EARLIER_I8_MS = {(144, 256): (0.2873, 0.2651), (48, 85): (0.3909, 0.3462),
                  (16, 28): (0.0996, 0.0684)}
 EARLIER_STEP_MS = {"float32": 1.3493, "bfloat16": 0.9449,
@@ -183,6 +194,9 @@ EARLIER_FPS = {"loop": 39875.9, "float32": 31629.0, "bfloat16": 32075.7,
                "e2e_xla": 151183.0, "e2e_allfused": 109213.0,
                "e2e_u8mid": 17162.4, "e2e_chain": 13970.0}
 HBM_BYTES_PER_S = 3.35e12
+# Cycles of torch.cuda._sleep ahead of a queued stream (about 10 ms at
+# the H100's clock): far longer than the host takes to enqueue it.
+SLEEP_CYCLES = 20_000_000
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 SRC_HW = (720, 1280)    # source frames of the preprocess paths
 MODEL_HW = (144, 256)   # their size at the model (reference size rule)
@@ -209,18 +223,32 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def stream_ms(fn, launches: int = 50) -> float:
+def stream_ms(fn, inputs: list | None = None, launches: int = 50,
+              queued: bool = False) -> float:
     """Milliseconds per call of ``fn()`` over ``launches`` calls enqueued
-    back to back between two CUDA events: the card's own time per call
-    once the host stays ahead of it (``cuda_ms``, one call between its
-    events, also counts the host's time to launch it)."""
-    fn()
+    back to back between two CUDA events (``cuda_ms``, one call between
+    its events, also counts the host's time to launch it).  A call whose
+    wrapper takes longer on the host than its kernel on the card is
+    timed at the host's pace; with ``queued`` the calls wait behind
+    ``SLEEP_CYCLES`` of ``torch.cuda._sleep``, so that the host stays
+    ahead and the figure is the card's own time per call.  With
+    ``inputs`` the calls are ``fn(x)``, rotating over them, each output
+    held until ``len(inputs)`` later calls have been made: n inputs and
+    n + 1 outputs rotate, and with more than the card's L2 between two
+    uses each call finds its input and its output out of L2 (without
+    ``inputs`` one input and one recycled output stay in it)."""
+    args = [()] if inputs is None else [(x,) for x in inputs]
+    held = collections.deque(maxlen=0 if inputs is None else len(inputs))
+    for a in args:  # warm-up; with inputs the allocator holds n + 1 outputs
+        held.append(fn(*a))
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(launches):
-        fn()
+    for i in range(launches):
+        held.append(fn(*args[i % len(args)]))
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
@@ -374,16 +402,20 @@ def phase_kernels(dev):
             else (by_bytes, "bytes")
 
     def record(name, shape, err, tol, ok, ms, plain_ms, library_ms, bnd,
-               streamed):
+               call):
+        """The row of a kernel checked against its plain version; ``call``
+        launches it once, for the two streamed times."""
+        streamed, card = stream_ms(call), stream_ms(call, queued=True)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name} {shape}: max_abs_err {err:.3e} ({tol}) "
-            f"kernel {ms:.4f} ms ({streamed:.4f} ms a call streamed) "
-            f"plain {plain_ms:.4f} ms library {lib} "
+            f"kernel {ms:.4f} ms ({streamed:.4f} ms a call streamed, "
+            f"{card:.4f} queued) plain {plain_ms:.4f} ms library {lib} "
             f"bound {bnd[0]:.4f} ms ({bnd[1]}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} at {shape} disagrees with its "
                                  f"plain version beyond {tol}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        return {"max_abs_err": err, "ms": ms, "stream_ms": streamed,
+                "card_stream_ms": card, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1]}
 
@@ -420,7 +452,7 @@ def phase_kernels(dev):
         return record(name, shape, err, tol, ok, cuda_ms(fn),
                       cuda_ms(plain_fn),
                       None if library_fn is None else cuda_ms(library_fn),
-                      bound_of(got), stream_ms(fn))
+                      bound_of(got), fn)
 
     # Layer 1's instances on the prod net's folded layer: f32, K1's
     # (Pallas numerics, its gamma / sqrt BN) and XLA's (gamma * rsqrt).
@@ -550,7 +582,7 @@ def phase_kernels(dev):
         err <= K5_TOL, cuda_ms(lambda: resize_normalize(raw, *MODEL_HW)),
         cuda_ms(lambda: resize_normalize_plain(raw, *MODEL_HW)),
         cuda_ms(interp), (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
-        stream_ms(lambda: resize_normalize(raw, *MODEL_HW)))
+        lambda: resize_normalize(raw, *MODEL_HW))
     results["yuv420_to_bgr"] = yuv_kernel(dev, record)
     for name, row in results.items():
         if name in EARLIER_MS:
@@ -629,7 +661,7 @@ def i8_kernels(dev, rng, record, library_conv, bound):
                                           torch.float32)),
                      bound((x, k, so, ring, scale), got, hh, ww, cin,
                            k.shape[-1], "i8"),
-                     stream_ms(lambda: fn(*args)))
+                     lambda: fn(*args))
         x_i8 = ints.to(torch.int8)
         cols, wmat = i8_im2col(x_i8, k)
         sums = torch._int_mm(cols[:2 * hh * ww], wmat)
@@ -652,9 +684,14 @@ def i8_kernels(dev, rng, record, library_conv, bound):
 def yuv_kernel(dev, record):
     """``yuv420_to_bgr`` against its plain version at the main path's
     shape, a seeded batch of 128 planes at 144x256, with a max diff of
-    0, then on the exhaustive probe (one 4096x4096 image holding every
-    (Y, U, V) combination) against the host's numpy twin; its row, timed
-    at the main path's shape."""
+    0; then against the host's numpy twin with 0 bytes apart on the
+    exhaustive probe (one 4096x4096 image holding every (Y, U, V)
+    combination: the vector route), on the same planes 2 bytes past a
+    16-byte boundary and cropped to 4096x4090 (the scalar route, as a
+    base or a width off 16 takes); its row, timed at the main path's
+    shape, with the times streamed from cold L2 (``stream_ms`` over
+    rotating inputs, at the host's pace and queued) and the wrapper's
+    host time a call beside it."""
     from cut_detection_tpu_torch.geometry import yuv420_nbytes
     from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import (
         yuv420_to_bgr,
@@ -674,27 +711,75 @@ def yuv_kernel(dev, record):
     ref = yuv420_to_bgr_plain(x, h, w)
     torch.cuda.synchronize()
     err = (got.int() - ref.int()).abs().max().item()
-    t0 = time.perf_counter()
-    probe = pack_yuv420(*exhaustive_probe())
-    want = yuv420_to_bgr_np(probe, 4096, 4096)
-    host_s = time.perf_counter() - t0
-    probe_got = yuv420_to_bgr(torch.from_numpy(probe[None]).to(dev), 4096,
-                              4096)[0].cpu().numpy()
-    bad = int((probe_got != want).sum())
-    log(f"kernel yuv420_to_bgr: exhaustive 2^24 (Y, U, V) probe, 4096x4096, "
-        f"{bad} bytes differ from the host's numpy twin ({host_s:.1f} s on "
-        f"the host) {'OK' if bad == 0 else 'FAIL'}")
-    if bad:
-        raise AssertionError(f"yuv420_to_bgr: {bad} bytes of the exhaustive "
-                             "probe differ from yuv420_to_bgr_np")
+    y, u, v = exhaustive_probe()
+    side, cropped = y.shape[1], y.shape[1] - 6
+    wants = {}
+    for what, planes, pw, offset in (
+            ("exhaustive 2^24 (Y, U, V) probe", (y, u, v), side, 0),
+            ("the probe 2 bytes past a 16-byte boundary", (y, u, v), side,
+             2),
+            ("the probe cropped to a width off 16",
+             (y[:, :cropped], u[:, :cropped // 2], v[:, :cropped // 2]),
+             cropped, 0)):
+        flat = pack_yuv420(*planes)
+        if pw not in wants:
+            wants[pw] = yuv420_to_bgr_np(flat, side, pw)
+        buf = torch.zeros(offset + flat.size, dtype=torch.uint8, device=dev)
+        buf[offset:] = torch.from_numpy(flat).to(dev)
+        out = yuv420_to_bgr(buf[offset:][None], side, pw)[0].cpu().numpy()
+        bad = int((out != wants[pw]).sum())
+        log(f"kernel yuv420_to_bgr: {what}, {side}x{pw}, {bad} bytes differ "
+            f"from the host's numpy twin {'OK' if bad == 0 else 'FAIL'}")
+        if bad:
+            raise AssertionError(f"yuv420_to_bgr: {bad} bytes of {what} "
+                                 "differ from yuv420_to_bgr_np")
+    del wants, buf
     # Bytes bound: the planes read once, the BGR frames written once; a
     # few integer operations a byte are far below the ALU rate.
     nbytes = x.numel() + got.numel()
-    return record("yuv420_to_bgr", tuple(x.shape), float(err), "max diff 0",
-                  err == 0, cuda_ms(lambda: yuv420_to_bgr(x, h, w)),
-                  cuda_ms(lambda: yuv420_to_bgr_plain(x, h, w)), None,
-                  (1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
-                  stream_ms(lambda: yuv420_to_bgr(x, h, w)))
+    bound = (1e3 * nbytes / HBM_BYTES_PER_S, "bytes")
+    row = record("yuv420_to_bgr", tuple(x.shape), float(err), "max diff 0",
+                 err == 0, cuda_ms(lambda: yuv420_to_bgr(x, h, w)),
+                 cuda_ms(lambda: yuv420_to_bgr_plain(x, h, w)), None, bound,
+                 lambda: yuv420_to_bgr(x, h, w))
+    # Cold L2: n input planes and n + 1 outputs rotating through 3x the
+    # card's L2 (n = 8 at the main path's shape on an H100's 50 MB).
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = -(-3 * l2 // nbytes)
+    inputs = [x] + [torch.from_numpy(rng.integers(
+        0, 256, tuple(x.shape), dtype=np.uint8)).to(dev) for _ in range(n - 1)]
+    for key, queued in (("cold_stream_ms", False),
+                        ("card_cold_stream_ms", True)):
+        row[key] = stream_ms(lambda t: yuv420_to_bgr(t, h, w), inputs,
+                             launches=64, queued=queued)
+    # What moving the same bytes costs the card: a clone of half of them
+    # (read once, written once), queued, warm and from cold L2.  No
+    # PyTorch call computes the conversion, so it is no library row.
+    halves = [torch.zeros(nbytes // 2, dtype=torch.uint8, device=dev)
+              for _ in inputs]
+    copy_ms = (stream_ms(halves[0].clone, queued=True),
+               stream_ms(lambda t: t.clone(), halves, launches=64,
+                         queued=True))
+    del halves
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        yuv420_to_bgr(x, h, w)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    log(f"kernel yuv420_to_bgr: streamed from cold L2 ({n} inputs, "
+        f"{n * nbytes / 1e6:.1f} MB rotating) {row['cold_stream_ms']:.4f} "
+        f"ms a call, {row['card_cold_stream_ms']:.4f} queued: "
+        f"{bound[0] / row['card_cold_stream_ms']:.1%} of the bound (warm "
+        f"L2: {row['stream_ms']:.4f} streamed, {row['card_stream_ms']:.4f} "
+        f"queued, {bound[0] / row['card_stream_ms']:.1%}); the wrapper's "
+        f"host time {host_ms:.4f} ms a call; a clone of {nbytes // 2:,} B "
+        f"(the same bytes moved) {copy_ms[0]:.4f} ms queued, "
+        f"{copy_ms[1]:.4f} from cold L2; the first design "
+        f"{EARLIER_YUV_MS[0]} ms one call, {EARLIER_YUV_MS[1]} streamed, "
+        f"{EARLIER_YUV_MS[2]} a batch in the trace")
+    return row
 
 
 def synthetic_frames(n: int, h: int = 144, w: int = 256,

@@ -560,12 +560,20 @@ def test_resize_normalize_kernel(cuda_dev, in_h, in_w, out_h, out_w):
                                rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,h,w", [(128, 144, 256), (3, 2, 2),
-                                   (5, 146, 254)])
-def test_yuv420_to_bgr_kernel(cuda_dev, b, h, w):
-    """The kernel equals its plain version exactly, one launch."""
-    x = T(np.random.default_rng(h * w).integers(
-        0, 256, (b, yuv420_nbytes(h, w)), dtype=np.uint8)).to(cuda_dev)
+@pytest.mark.parametrize("b,h,w,offset", [
+    (128, 144, 256, 0), (3, 2, 2, 0), (5, 146, 254, 0), (4, 144, 426, 0),
+    (3, 2, 18, 0), (4, 2, 6, 0), (133, 144, 256, 0), (6, 144, 256, 2),
+    (3, 16, 32, 2), (7, 10, 48, 0), (2, 4, 1056, 0)])
+def test_yuv420_to_bgr_kernel(cuda_dev, b, h, w, offset):
+    """The kernel equals its plain version exactly, one launch: the
+    vector route (W % 16 == 0, 16-aligned planes; blocks that span whole
+    rows, part of a row at 1056, or hang past the row at 48) and the
+    scalar one (a width off 16, a frame stride off 16 at B > 1, planes
+    ``offset`` bytes into a larger buffer)."""
+    n_bytes = yuv420_nbytes(h, w)
+    buf = T(np.random.default_rng(h * w).integers(
+        0, 256, b * n_bytes + offset, dtype=np.uint8)).to(cuda_dev)
+    x = buf[offset:].view(b, n_bytes)
     n = yuv420_to_bgr.launches
     got = yuv420_to_bgr(x, h, w)
     torch.cuda.synchronize()
