@@ -88,6 +88,17 @@ Phases, each of which raises on failure:
              numerics: no class flips, logits within ``BENCH_XLA_TOL``),
              stage ``mid`` (K3's ``bf16_out``) likewise, then ``all``;
              each stage's JSON line is printed;
+8b. profile — the layer-1 stage-bisection kernel ``conv1_stages`` at
+             batch 128 on the profiling script's seeded inputs: each of
+             its six stages against its plain version (``cast`` and
+             ``taps`` exact; the sums within ``check_stage``'s stated
+             tolerances, which must reject the sums without the bf16
+             rounding and a ``dott`` sink of rolled channels), its
+             times beside its bound, its plain version's and, for
+             ``dotn`` and ``dott``, ``torch.matmul``'s of the same
+             products; then the ``profile_fused_conv1``
+             entry point with its launches counted and its cumulative
+             table of microseconds an image;
 9. golden  — when a decoder exists (cv2 or the native decoder), the
              ``segment_video`` CLI's ``main`` on the committed golden
              clips at float32 with no preprocess flag, ``--device-resize``
@@ -111,6 +122,14 @@ Phases, each of which raises on failure:
              0.99, and corpus a, b, c and nat at float32 and
              ``uint8_chain`` under yuv420 at the JAX gates.  Kernel
              launches are counted by instance in every run;
+9b. serve  — the serving daemon in this process (``make_server`` at port
+             0, warmed up, heartbeat on): ``/healthz``, ``/segment`` of
+             ``clip.mp4`` at float32 / bgr (the reference's CSV bytes),
+             ``/segment_batch`` of both golden clips (likewise),
+             ``/reload`` to ``bfloat16_full`` and a request there, then
+             back, and ``/metrics``; the block kernels' launches counted
+             inside each request against its batches; then shut down
+             with no thread or process left;
 10. device_glue — the segment smoother on the card
              (``segmentation.device_glue``) on a seeded 324,000-frame
              score vector (a 3-hour game at 30 fps) against the host
@@ -331,6 +350,15 @@ def phase_build():
     if len(layer1) != LAYER1_MMA_KERNELS:
         raise AssertionError(f"{len(layer1)} layer-1 tensor-core kernels in "
                              f"the library, expected {LAYER1_MMA_KERNELS}")
+    # The stage-bisection kernel's instances (template argument = stage):
+    # wgmma from dotn (2) on, none in cast (0) and taps (1).
+    stages = {int(m.group(1)): c["HGMMA"] for n, c in counts.items()
+              if (m := re.search(r"conv1_stagesILi(\d)E", n))}
+    log(f"build: conv1_stages instances, HGMMA by stage {stages}")
+    if sorted(stages) != list(range(6)) or stages[0] or stages[1] \
+            or not all(stages[k] for k in range(2, 6)):
+        raise AssertionError(f"conv1_stages: expected six instances, wgmma "
+                             f"from dotn on only; got {stages}")
 
 
 def _bn(rng, cout):
@@ -819,6 +847,9 @@ def _wrappers():
         yuv420_to_bgr,
     )
 
+    from cut_detection_tpu_torch.ops.kernels.conv1_stages import (
+        conv1_stages,
+    )
     from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
         conv1_block_i8,
         conv_block_i8,
@@ -828,7 +859,8 @@ def _wrappers():
             "resize_normalize": resize_normalize,
             "yuv420_to_bgr": yuv420_to_bgr,
             "conv1_block[i8]": conv1_block_i8,
-            "conv_block[i8]": conv_block_i8}
+            "conv_block[i8]": conv_block_i8,
+            "conv1_stages": conv1_stages}
 
 
 def zero_launches() -> None:
@@ -1688,6 +1720,259 @@ def phase_bench(dev):
     return {inst: launches[inst] + mid[inst] for inst in launches}
 
 
+PROFILE_STEPS = 10  # calls per timed loop of the profile phase
+
+
+def phase_profile(dev):
+    """The layer-1 stage-bisection kernel (``conv1_stages``), at batch 128
+    of the profiling script's seeded inputs: each stage's kernel against
+    its plain version (``conv1_stages.check_stage``: ``cast`` and
+    ``taps`` exact, the sums within the tolerances stated there, which
+    must reject the plain version without the bf16 rounding and a
+    ``dott`` sink of accumulators with rolled channels), its times
+    beside its bound, its plain version's and, for ``dotn`` and
+    ``dott``, ``torch.matmul`` of the same bf16 products, strip by strip
+    (one batched call on an im2col made outside it).  Then the entry
+    point ``profile_fused_conv1`` with its launches counted (one warm-up
+    call and ``3 * PROFILE_STEPS`` timed ones a stage) and its cumulative
+    table of microseconds an image.  Returns ``(rows, launches)``."""
+    from cut_detection_tpu_torch.ops.kernels import conv1_stages as cs
+    from cut_detection_tpu_torch.scripts import profile_fused_conv1 as prof
+
+    x, w = prof.seeded_inputs(BATCH, dev)
+    a = torch.zeros((BATCH * cs.N_STRIPS, cs.K, cs.M), dtype=torch.bfloat16,
+                    device=dev)
+    a[:, :27] = cs.im2col(x).reshape(BATCH, 27, cs.N_STRIPS, cs.M) \
+        .permute(0, 2, 1, 3).reshape(-1, 27, cs.M).to(torch.bfloat16)
+    a_t = a.transpose(1, 2).contiguous()
+    w_t = w.t().contiguous()
+    library = {"dotn": lambda: torch.matmul(w, a),
+               "dott": lambda: torch.matmul(a_t, w_t)}
+    nbytes = (x.numel() + w.numel() * 2 + BATCH * cs.OUT * cs.OUT * 4
+              + BATCH * 4)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    # The products the conv needs: 27 taps (the weights' columns 27-31
+    # meet the TPU kernel's zero im2col rows), the 48 channels unpadded.
+    by_ops = 1e3 * 2 * cs.COUT * 27 * cs.M * cs.N_STRIPS * BATCH \
+        / PEAK_FLOPS["bf16"]
+    rows = {}
+    for stage in cs.STAGES:
+        got = cs.conv1_stages(x, w, stage)
+        want = cs.conv1_stages_plain(x, w, stage)
+        torch.cuda.synchronize()
+        err = cs.check_stage(stage, x, w, got, want)
+        if not torch.isfinite(got[0]).all():
+            raise AssertionError(f"conv1_stages[{stage}]: non-finite out")
+
+        def call(stage=stage):
+            return cs.conv1_stages(x, w, stage)
+
+        ms = cuda_ms(call)
+        streamed = stream_ms(call)
+        plain_ms = cuda_ms(lambda: cs.conv1_stages_plain(x, w, stage),
+                           reps=3, warmup=1)
+        lib_ms = cuda_ms(library[stage]) if stage in library else None
+        bnd = (by_bytes, "bytes") if stage in ("cast", "taps") or \
+            by_bytes >= by_ops else (by_ops, "operations")
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"profile: conv1_stages[{stage}] max_abs_err {err:.3e} "
+            f"(conv1_stages.check_stage) kernel {ms:.4f} ms ({streamed:.4f}"
+            f" ms a call streamed) plain {plain_ms:.4f} ms library {lib} "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}) OK")
+        rows[f"conv1_stages[{stage}]"] = {
+            "max_abs_err": err, "ms": ms, "stream_ms": streamed,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+    # The checks' power at this size: the plain version without the bf16
+    # rounding (tpose, full) and a dott sink of accumulators whose
+    # channels are rolled by one must each fail check_stage.
+    rounded = cs._bf16_relu
+    for stage in ("tpose", "full"):
+        want = cs.conv1_stages_plain(x, w, stage)
+        cs._bf16_relu = torch.relu
+        try:
+            unrounded = cs.conv1_stages_plain(x, w, stage)
+        finally:
+            cs._bf16_relu = rounded
+        try:
+            cs.check_stage(stage, x, w, unrounded, want)
+        except AssertionError:
+            log(f"profile: check_stage rejects {stage} without the bf16 "
+                "rounding")
+        else:
+            raise AssertionError(f"check_stage({stage}) passes the sums "
+                                 "without the bf16 rounding")
+    want = cs.conv1_stages_plain(x, w, "dott")
+    rolled = cs.dott_sink(cs.conv_acc(x, w).roll(1, dims=1))
+    try:
+        cs.check_stage("dott", x, w, (want[0], rolled), want)
+    except AssertionError:
+        log("profile: check_stage rejects a dott sink of rolled channels")
+    else:
+        raise AssertionError("check_stage(dott) passes rolled channels")
+
+    zero_launches()
+    out = prof.run(BATCH, PROFILE_STEPS, cs.STAGES, dev)
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    for stage in cs.STAGES:
+        want[f"conv1_stages[{stage}]"] = 1 + 3 * PROFILE_STEPS
+    log(f"profile: entry point, launches {launches}")
+    check_launches("profile_fused_conv1", launches, want)
+    log(f"profile: {json.dumps(out)}")
+    us = {st: out[st + "_us_per_img"] for st in cs.STAGES}
+    log("profile: stage (cumulative) | us/img | delta")
+    for stage, base in (("cast", None), ("taps", "cast"), ("dotn", "taps"),
+                        ("dott", "taps"), ("tpose", "dotn"),
+                        ("full", "tpose")):
+        delta = us[stage] - (us[base] if base else 0.0)
+        log(f"profile: {stage} | {us[stage]:.4f} | {delta:+.4f}"
+            f"{f' vs {base}' if base else ''}")
+    return rows, launches
+
+
+def phase_serve(dev, workdir):
+    """The serving daemon in this process on the card (``make_server``
+    at port 0, warmed up, the device heartbeat on): ``/healthz``;
+    ``/segment`` of ``clip.mp4`` at float32, ``transfer: "bgr"``, whose
+    CSV must be the reference's bytes; ``/segment_batch`` of both golden
+    clips (each CSV the reference's); ``/reload`` to ``bfloat16_full``, a
+    ``/segment`` there (frame accuracy >= 0.99 against the reference),
+    ``/reload`` back; ``/metrics``.  The block kernels' launches are
+    counted inside each request and must be the path's per batch times
+    the request's batches.  Then the server, its heartbeat and every
+    thread and process it started are stopped, and none may be left.
+    Returns the requests' launches."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from cut_detection_tpu_torch.cli import serve
+    from cut_detection_tpu_torch.cli.evaluate import evaluate
+    from cut_detection_tpu_torch.pipeline import available_decoder
+
+    if available_decoder() is None:
+        raise RuntimeError("serve: no video decoder on this machine")
+    threads0, pids0 = set(threading.enumerate()), set(_child_pids())
+    t0 = time.perf_counter()
+    server, state = serve.make_server("127.0.0.1", 0, warmup=True,
+                                      heartbeat_interval=0.2, device=dev,
+                                      transfer="auto")
+    log(f"serve: make_server with warmup {time.perf_counter() - t0:.2f} s, "
+        f"transfer auto -> {state.transfer}")
+    loop = threading.Thread(target=server.serve_forever, daemon=True)
+    loop.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(base + path, data=data,
+                                     method="GET" if data is None
+                                     else "POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    def counted(what, precision, path, payload):
+        zero_launches()
+        t = time.perf_counter()
+        res = call(path, payload)
+        wall = time.perf_counter() - t
+        got = read_launches()
+        items = res["results"] if "results" in res else [res]
+        batches = sum(r["stats"]["batches"] for r in items)
+        check_launches(f"serve {what}", got, per_batch(batches, precision))
+        if not any(got.values()):
+            raise AssertionError(f"serve {what}: no kernel launched")
+        log(f"serve: {what} {wall:.2f} s, {batches} batches, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        return res, got
+
+    launches = collections.Counter()
+    try:
+        deadline = time.time() + 10
+        while True:
+            health = call("/healthz")
+            dev_ok = health["device"] and health["device"]["ok_age_s"] < 5
+            if dev_ok or time.time() > deadline:
+                break
+            time.sleep(0.1)
+        log(f"serve: /healthz {health}")
+        if health["status"] != "ok" or not dev_ok or \
+                health["device"]["last_error"] is not None:
+            raise AssertionError(f"serve: /healthz {health}")
+        clips = []
+        for clip, ref, n in GOLDEN_CLIPS:
+            path = os.path.join(workdir, "serve_" + clip)
+            shutil.copy(os.path.join(GOLDEN, clip), path)
+            clips.append((path, os.path.join(GOLDEN, ref), n))
+        out = os.path.join(workdir, "served.csv")
+        res, got = counted("/segment clip.mp4 float32", "float32",
+                           "/segment", {"input_path": clips[0][0],
+                                        "output_path": out,
+                                        "transfer": "bgr"})
+        launches.update(got)
+        with open(out, "rb") as f, open(clips[0][1], "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("serve: /segment CSV differs from "
+                                     "ref_segments.csv")
+        res, got = counted("/segment_batch golden clips float32",
+                           "float32", "/segment_batch",
+                           {"input_paths": [c[0] for c in clips],
+                            "transfer": "bgr"})
+        launches.update(got)
+        for r, (_, ref, _) in zip(res["results"], clips):
+            with open(r["output_path"], "rb") as f, open(ref, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"serve: /segment_batch CSV "
+                                         f"differs from {ref}")
+        log("serve: /segment and /segment_batch CSVs byte-identical to the "
+            "references")
+        t = time.perf_counter()
+        res = call("/reload", {"precision": "bfloat16_full"})
+        log(f"serve: /reload bfloat16_full {time.perf_counter() - t:.2f} s "
+            f"(warmed) -> {res}")
+        out = os.path.join(workdir, "served_bf16.csv")
+        counted("/segment clip.mp4 bfloat16_full", "bfloat16_full",
+                "/segment", {"input_path": clips[0][0], "output_path": out,
+                             "transfer": "bgr"})
+        acc = evaluate(out, clips[0][1], clips[0][2])["frame_accuracy"]
+        log(f"serve: bfloat16_full frame accuracy {acc}")
+        if acc < 0.99:
+            raise AssertionError(f"serve: bfloat16_full accuracy {acc}")
+        res = call("/reload", {"precision": "float32"})
+        if res["precision"] != "float32" or state.net.precision != \
+                "float32":
+            raise AssertionError(f"serve: /reload back failed: {res}")
+        metrics = call("/metrics")
+        log(f"serve: /metrics {metrics}")
+        if metrics["requests_served"] != 4 or metrics["requests_failed"]:
+            raise AssertionError(f"serve: /metrics {metrics}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.join(10)
+        if state.heartbeat is not None:
+            state.heartbeat.stop()
+            state.heartbeat.join(10)
+    deadline = time.time() + 10
+    while time.time() < deadline:
+        left = [t for t in threading.enumerate() if t not in threads0
+                and t.is_alive()]
+        if not left:
+            break
+        time.sleep(0.1)
+    if left:
+        raise AssertionError(f"serve: threads left running: {left}")
+    # (The golden phase's shared-memory rings leave multiprocessing's
+    # resource tracker running until ``stop_children``.)
+    started = sorted(set(_child_pids()) - pids0)
+    if started:
+        raise AssertionError(f"serve: processes left: {started}")
+    log("serve: shut down, no thread or process of its own left")
+    return dict(launches)
+
+
 def _child_pids() -> list[int]:
     """The processes whose parent is this one, from ``/proc``."""
     me, pids = os.getpid(), []
@@ -1783,6 +2068,9 @@ KERNEL_ROWS = (
      "conv_block.cu", "cut_detection_tpu/models/layers.py:229"),
     ("conv_block[i8]", "int8_mxu", "cut_detection_tpu_torch/csrc/"
      "conv_block.cu", "cut_detection_tpu/models/layers.py:229"),
+    *((f"conv1_stages[{stage}]", "profile", "cut_detection_tpu_torch/csrc/"
+       "conv_block.cu", "scripts/profile_fused_conv1.py:40")
+      for stage in ("cast", "taps", "dotn", "dott", "tpose", "full")),
 )
 # The rows whose ``replaces`` is an op the JAX package leaves to XLA (no
 # Pallas kernel): each row's ``replaces_kind`` says which it is.
@@ -1813,7 +2101,10 @@ def run() -> tuple[str, list[dict]]:
         paths["preprocess"] = timed("preprocess", phase_preprocess, dev)
         paths.update(timed("precision", phase_precision, dev, frames, wd))
         paths["bench_fused"] = timed("bench_fused", phase_bench, dev)
+        prof_rows, paths["profile"] = timed("profile", phase_profile, dev)
+        kres.update(prof_rows)
         timed("golden", phase_golden, wd)
+        paths["serve"] = timed("serve", phase_serve, dev, wd)
         timed("device_glue", phase_device_glue, dev)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:

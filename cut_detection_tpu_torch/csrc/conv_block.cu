@@ -44,6 +44,10 @@
 //   i8 (U8I8)      the same from raw uint8 BGR, shifted by -128 as it is
 //                  packed (the shift's constant lives in the ring) —
 //                  layer 1 of int8_mxu.
+// And the stage bisection of layer 1 (cutdet_conv1_stages, conv1_stages<S>
+// in namespace stages): conv1_block_mma's chain cut after each step, on
+// the planar input of scripts/profile_fused_conv1.py's _kernel, which it
+// replaces.
 // The int8 codes equal the plain version's (ops/kernels/conv_block_i8.py)
 // with a max diff of 0: the sums are exact (|sum| <= 432 * 128 * 127 <
 // 2^24 at the prod widths, so f32(sum) is exact too) and the f32 steps
@@ -991,9 +995,10 @@ constexpr int kRingStride = 76;
 // then be int8 0, as the plain version pads the shifted frame: the pads
 // around the frame's columns hold 0x80 (zero_raw_pads) and a row outside
 // the frame (input row 3r - 1 + sr) is written as zeros.
-template <bool kInt8>
+template <bool kInt8, bool kSum = false>
 __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
-                          int r, const Conv1Plan& p, int lt) {
+                          int r, const Conv1Plan& p, int lt,
+                          uint32_t* sum = nullptr) {
   if (lt >= cutdet::kRowsStaged * kConv1Cols) return;
   const int sr = lt / kConv1Cols, c = lt - sr * kConv1Cols;
   const int o = kRawLead + 3 * (kConv1Cols * j + c - 1);
@@ -1004,8 +1009,8 @@ __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
   const uint32_t b0 = __funnelshift_r(w0, w1, sh);  // bytes 0-3
   const uint32_t b1 = __funnelshift_r(w1, w2, sh);  // bytes 4-7
   const int wl = c / 3, u = (wl & 1) * 3 + c % 3;
-  uint4* out = reinterpret_cast<uint4*>(
-      dst + (sr * 3 + u / 2) * 256 + ((wl >> 1) * 2 + (u & 1)) * 16);
+  const int at = (sr * 3 + u / 2) * 256 + ((wl >> 1) * 2 + (u & 1)) * 16;
+  uint4* out = reinterpret_cast<uint4*>(dst + at);
   if constexpr (kInt8) {
     const int y = 3 * r - 1 + sr;
     out[0] = y >= 0 && y < p.s.H
@@ -1013,9 +1018,19 @@ __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
                               ((w2 >> sh) & 0xFFu) ^ 0x80u, 0u)
                  : make_uint4(0u, 0u, 0u, 0u);
   } else {
-    out[0] = make_uint4(u8_pair_bf16(b0, 0, b0, 1), u8_pair_bf16(b0, 2, b0, 3),
-                        u8_pair_bf16(b1, 0, b1, 1), u8_pair_bf16(b1, 2, b1, 3));
-    out[8] = make_uint4(u8_pair_bf16(w2 >> sh, 0, 0u, 0), 0u, 0u, 0u);  // k 8
+    const uint4 lo =
+        make_uint4(u8_pair_bf16(b0, 0, b0, 1), u8_pair_bf16(b0, 2, b0, 3),
+                   u8_pair_bf16(b1, 0, b1, 1), u8_pair_bf16(b1, 2, b1, 3));
+    const uint32_t hi = u8_pair_bf16(w2 >> sh, 0, 0u, 0);  // k 8
+    out[0] = lo;
+    out[8] = make_uint4(hi, 0u, 0u, 0u);
+    if constexpr (kSum) {
+      // The tile's checksum (conv1_stages' taps): each word written times
+      // 2 * its word index in the tile + 1, mod 2^32.
+      const uint32_t i = at / 4;
+      *sum += lo.x * (2 * i + 1) + lo.y * (2 * i + 3) + lo.z * (2 * i + 5) +
+              lo.w * (2 * i + 7) + hi * (2 * i + 65);
+    }
   }
   cutdet::fence_proxy_async();  // wgmma reads the tile through the async proxy
 }
@@ -1024,15 +1039,10 @@ __device__ void pack_tile(const unsigned char* raw, unsigned char* dst, int j,
 // weights (A, in registers) x the packed pixels (B), three k steps.  D's
 // columns 24cy + (8i + 2t + e) are conv row cy of the tile's pixels, so
 // a thread holds, for its channels 16 * warp + g and + 8, every value of
-// windows 2t and 2t + 1: the pool is a max over its own registers.  Then
-// the epilogue (the channels' bias and BN affine in ``par``) and a bf16
-// store per window and channel.
-template <typename I>
-__device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
-                           int item, int n0, const Conv1Plan& p,
-                           const float (&par)[6],
-                           typename I::out_t* __restrict__ out) {
-  float d[36];
+// windows 2t and 2t + 1: the pool is a max over its own registers.
+__device__ __forceinline__ void conv1_mma(uint32_t b_tile,
+                                          const uint32_t (&wa)[3][4],
+                                          float (&d)[36]) {
 #pragma unroll
   for (int i = 0; i < 36; ++i) d[i] = 0.f;
 #pragma unroll
@@ -1046,6 +1056,32 @@ __device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
   cutdet::wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < 36; ++i) cutdet::fence_operand(d[i]);
+}
+
+// The pool of conv1_mma's accumulators: for channel row h (g or g + 8),
+// the maxes m0 and m1 of the thread's windows 2t and 2t + 1.
+__device__ __forceinline__ void conv1_pool(const float (&d)[36], int h,
+                                           float& m0, float& m1) {
+  m0 = -CUDART_INF_F;
+  m1 = -CUDART_INF_F;
+#pragma unroll
+  for (int cy = 0; cy < 3; ++cy) {
+    const float* v = d + 12 * cy + 2 * h;  // d[4 * (3cy + i) + 2h + e]
+    m0 = fmaxf(m0, fmaxf(fmaxf(v[0], v[1]), v[4]));
+    m1 = fmaxf(m1, fmaxf(fmaxf(v[5], v[8]), v[9]));
+  }
+}
+
+// Layer 1's N tile j: conv1_mma, conv1_pool, then the epilogue (the
+// channels' bias and BN affine in ``par``) and a bf16 store per window
+// and channel.
+template <typename I>
+__device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
+                           int item, int n0, const Conv1Plan& p,
+                           const float (&par)[6],
+                           typename I::out_t* __restrict__ out) {
+  float d[36];
+  conv1_mma(b_tile, wa, d);
 
   const int lt = threadIdx.x % 128, warp = lt / 32;
   const int g = (lt % 32) >> 2, t = lt & 3;
@@ -1057,13 +1093,8 @@ __device__ void conv1_tile(uint32_t b_tile, const uint32_t (&wa)[3][4], int j,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {  // channel rows g, g + 8
     const int oc = n0 + 16 * warp + g + 8 * h;
-    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-    for (int cy = 0; cy < 3; ++cy) {
-      const float* v = d + 12 * cy + 2 * h;  // d[4 * (3cy + i) + 2h + e]
-      m0 = fmaxf(m0, fmaxf(fmaxf(v[0], v[1]), v[4]));
-      m1 = fmaxf(m1, fmaxf(fmaxf(v[5], v[8]), v[9]));
-    }
+    float m0, m1;
+    conv1_pool(d, h, m0, m1);
     if (oc >= s.Cout || q >= s.Wp) continue;
     const float* pc = par + 3 * h;
     cutdet::store(orow + oc, cutdet::epilogue<I::epi>(m0, pc[0], pc[1], pc[2]));
@@ -1355,6 +1386,392 @@ int launch_conv1(const void* x, const void* w, const void* bias,
       static_cast<typename I::out_t*>(out), p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------
+// Stage bisection of layer 1's tensor-core chain (conv1_stages): the
+// chain of conv1_block_mma, cut after each step, on the TPU stage-bisection
+// kernel's input, so that the cuts' times split the chain's cost.
+//
+// Replaces the TPU kernel ``_kernel`` of scripts/profile_fused_conv1.py
+// (its pallas_call in ``build``), stage for stage, at its only shape: a
+// 144x256 frame in the planar flat layout (3 planes of (144 + 2) rows x
+// 258 lanes, the row pads included, uint8) and [48, 32] bf16 weights (k =
+// (dy * 3 + dx) * 3 + c; columns 27-31 meet the TPU's zero im2col rows and
+// are not read).  Its conv is a 1-D one over a plane's flat index u:
+// conv[o][u] = sum W[o][k] * x[c][u + 258 dy + dx - 1], zero outside the
+// plane, for the 144 x 258 positions u.  As conv1_block_mma's item, an
+// item here is a pooled row r: conv rows 3r .. 3r + 2 from plane rows 3r
+// .. 3r + 4, its raw rows (raw row sr, pixel xc = x[.][(3r + sr) * 258 +
+// xc] for xc from -1, at byte kRawLead + 3 xc); 11 N tiles of 24
+// positions a conv row, the last with 18 real ones (its pads read the
+// next row and are left out of every result).  Each warpgroup runs
+// conv1_block_mma's steps on its items: the raw bytes copied ahead
+// (cp.async), then per tile pack_tile, a warpgroup barrier and
+// conv1_mma (three k16 steps, one per dy, k = dx * 3 + c), then
+// conv1_pool.  What differs: the copy is of the planar planes, one item
+// ahead into two slots (conv1_block_mma: two ahead, three slots; the
+// partials below take the room), and an interleave pass at the item's
+// turn makes the raw rows that conv1_block_mma copies straight from NHWC
+// frames; a block takes one frame (the TPU's grid step) and its five
+// warpgroups walk its 48 items (r = wg, wg + 5, ...), where
+// conv1_block_mma's persistent grid deals items of every frame; and
+// results are summed into the warpgroup's own shared partial (plain
+// adds: a thread owns its elements), where conv1_block_mma stores them to
+// global memory (shared float atomics into one block partial cost more
+// than the wgmma step).
+// What each stage leaves in ``out`` ([B, 128, 128] f32, every element
+// written, zero where the stage defines nothing) and in ``sink`` ([B]):
+//   cast   + staging (the copy and the interleave); out[0:48, 0:128] =
+//          x[0, 0:128], read back from the raw rows of item 0.
+//   taps   + pack_tile for every tile; sink = pack_tile's checksum (the
+//          words of every tile, each times 2 * its word index + 1, summed
+//          mod 2^32; int32 bits), which only this stage computes.
+//   dotn   + conv1_mma (M = the 48 channels, padded to 64, N = the tile's
+//          72 positions); out[0:48, 0:128] = the sum over the 12 strips
+//          (items r = 4s, conv row 0, tiles 0-5) of acc[:, 0:128].
+//   dott   taps, then the other operand roles (the mid-stack kernel's):
+//          M = positions, A by ldmatrix from the packed tile, N = the 48
+//          channels, W^T staged once as B.  The tile's 72 positions are
+//          9/8 of wgmma's M, so each k step runs two m64n48: slots 0-63
+//          and 8-71, of which the second keeps 64-71.  sink = sum of acc
+//          * ((u mod 7) + 1) * ((o mod 5) + 1) over positions u and
+//          channels o.
+//   tpose  dotn + an epilogue on every accumulator: relu, then bf16
+//          rounding; out[0:48, 0:128] = the sum over the strips of
+//          bf16(relu(acc))[:, 0:128]; sink = the xor of the rounded
+//          values (keeps them; follows the accumulation order, compared
+//          with nothing).
+//   full   dotn + conv1_pool, relu and bf16 rounding of each window's max
+//          (relu and rounding are monotonic, so they commute with the
+//          max); out[0:85, 0:48] = the sum over the 48 items of the
+//          pooled row [85, 48].
+// What bounds it on an H100, at batch 128: 14.5 MB of uint8 in and 8.4 MB
+// of f32 out, 0.0068 ms at 3.35 TB/s, bound cast and taps; the products
+// the conv needs, 2 * 48 * 27 * 3096 * 12 * 128 = 1.23e10 bf16
+// operations, 0.0125 ms at 989 TFLOP/s, bound the rest.
+namespace stages {
+
+enum Stage { kCast = 0, kTaps, kDotn, kDott, kTpose, kFull };
+
+constexpr int kWs = 258;                // lanes of a plane row
+constexpr int kFlat = (144 + 2) * kWs;  // 37,668 bytes a plane
+constexpr int kItems = 48;              // pooled rows a frame
+constexpr int kOutW = (256 - 3) / 3 + 1;  // 85 pooled columns
+constexpr int kCout = 48;
+constexpr int kK = 32;    // the weights' row
+constexpr int kOut = 128;  // out is [128, 128] a frame
+constexpr int kThreads = 128 * kConv1Warpgroups;
+constexpr int kTiles = (kWs + kConv1Cols - 1) / kConv1Cols;  // 11
+// launch_conv1's raw-row bytes for 11 tiles: the row's pixels -1 .. 266.
+constexpr int kRs = 832;
+constexpr int kRawBytes = cutdet::kRowsStaged * kRs;
+constexpr int kTileBytes = cutdet::kRowsStaged * 3 * 256;
+// An item's copy, per plane: flat bytes from base = (3r * 258 - 4) & ~3
+// (4-byte aligned), lead = 0 or 2 bytes before pixel -4 of plane row 3r,
+// through pixel 267 of plane row 3r + 4; zero outside the plane.
+constexpr int kSpanWords = (2 + 4 * kWs + 272 + 3) / 4;  // 327
+constexpr int kSpanPlane = 1312;  // 16-byte multiple >= 4 * kSpanWords
+constexpr int kSpanSlot = 3 * kSpanPlane;  // one item, three planes
+constexpr int kGroups = 68;  // 4-pixel groups a raw row: pixels -4 .. 267
+constexpr int kPerWg = 2 * kTileBytes + 2 * kSpanSlot + kRawBytes;
+constexpr int kPartBytes = kCout * kOut * 4;  // a warpgroup's partial
+constexpr int kWtBytes = 3 * kCout * 16 * 2;  // dott's W^T, in the partials'
+                                              // room (dott has none)
+constexpr size_t kSmem =
+    kConv1Warpgroups * (kPartBytes + kPerWg) + 128;
+
+static_assert(kSmem <= kSmemLimit, "conv1_stages: shared memory");
+static_assert(kRs >= kRawLead + 3 * (kConv1Cols * kTiles - 1) + 12,
+              "conv1_stages: raw row");
+static_assert(kRs >= kRawLead + 3 * (4 * kGroups - 4) + 12,
+              "conv1_stages: interleave");
+
+// Copy item r's planar bytes of frame b to ``slot`` (one cp.async group
+// per thread).
+__device__ __forceinline__ void copy_span(const uint8_t* __restrict__ x,
+                                          unsigned char* slot, int b, int r,
+                                          int lt) {
+  const uint32_t dst0 = static_cast<uint32_t>(__cvta_generic_to_shared(slot));
+  const int base = (3 * r * kWs - 4) & ~3;
+  for (int i = lt; i < 3 * kSpanWords; i += 128) {
+    const int c = i / kSpanWords, wd = i - c * kSpanWords;
+    const int at = base + 4 * wd;
+    const bool valid = at >= 0 && at + 4 <= kFlat;
+    const uint8_t* src =
+        valid ? x + (static_cast<size_t>(b) * 3 + c) * kFlat + at : x;
+    cutdet::cp_async4(dst0 + c * kSpanPlane + 4 * wd, src, valid);
+  }
+  cutdet::cp_async_commit();
+}
+
+// Item r's raw rows from its copy: raw row sr, pixels 4g - 4 .. 4g - 1,
+// as 12 interleaved bytes (plane 0, 1, 2 of each pixel), three words.
+__device__ __forceinline__ void interleave(const unsigned char* span,
+                                           unsigned char* raw, int r,
+                                           int lt) {
+  const int lead = (3 * r * kWs - 4) - ((3 * r * kWs - 4) & ~3);
+  const uint32_t* sp = reinterpret_cast<const uint32_t*>(span);
+  for (int i = lt; i < cutdet::kRowsStaged * kGroups; i += 128) {
+    const int sr = i / kGroups, g = i - sr * kGroups;
+    const int o = lead + sr * kWs + 4 * g;
+    const int a = o >> 2, sh = (o & 3) * 8;
+    uint32_t p[3];  // pixels 4g - 4 .. 4g - 1 of plane c
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      p[c] = __funnelshift_r(sp[c * (kSpanPlane / 4) + a],
+                             sp[c * (kSpanPlane / 4) + a + 1], sh);
+    uint32_t* dst =
+        reinterpret_cast<uint32_t*>(raw + sr * kRs + kRawLead - 12 + 12 * g);
+    dst[0] = __byte_perm(__byte_perm(p[0], p[1], 0x1040), p[2], 0x3410);
+    dst[1] = __byte_perm(__byte_perm(p[1], p[0], 0x2601), p[2], 0x3250);
+    dst[2] = __byte_perm(__byte_perm(p[2], p[0], 0x3072), p[1], 0x3710);
+  }
+}
+
+// Column (within the tile) of slot sn (0-23) of a conv row of the tile:
+// the inverse of pack_tile's order (slot 8 (u / 2) + 2 (wl / 2) + u % 2
+// holds column 3 wl + c % 3, u = 3 (wl % 2) + c % 3).
+__device__ __forceinline__ int slot_col(int sn) {
+  const int i = sn / 8, rr = sn % 8, u = 2 * i + (rr & 1);
+  return 3 * (2 * (rr / 2) + u / 3) + u % 3;
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv1_stages(const uint8_t* __restrict__ x, const bf16* __restrict__ w,
+                 float* __restrict__ out, float* __restrict__ sink) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int warp = lt / 32, g = (lt % 32) >> 2, t = lt & 3;
+  float* part = reinterpret_cast<float*>(smem + wg * kPartBytes);
+  unsigned char* wt = smem;
+  unsigned char* mine = smem + kConv1Warpgroups * kPartBytes + wg * kPerWg;
+  unsigned char* tiles = mine;
+  unsigned char* spans = mine + 2 * kTileBytes;
+  unsigned char* raw = spans + 2 * kSpanSlot;
+  float* red = reinterpret_cast<float*>(
+      smem + kConv1Warpgroups * (kPartBytes + kPerWg));
+  Conv1Plan plan{};
+  plan.rs = kRs;
+
+  if constexpr (S != kDott)
+    for (int i = lt; i < kCout * kOut; i += 128) part[i] = 0.f;
+  const unsigned short* wbits = reinterpret_cast<const unsigned short*>(w);
+  auto wv = [&](int o, int dy, int k) -> uint32_t {
+    return k < 9 && o < kCout ? wbits[o * kK + dy * 9 + k] : 0u;
+  };
+  if constexpr (S == kDott) {  // B of step dy: W^T [16 k x 48], K-major
+    for (int i = threadIdx.x; i < 3 * kCout * 16; i += kThreads) {
+      const int dy = i / (kCout * 16), n = (i / 16) % kCout, k = i % 16;
+      reinterpret_cast<unsigned short*>(
+          wt + dy * (kCout * 32) + (n / 8) * 256 + (k / 8) * 128 +
+          (n % 8) * 16)[k % 8] = static_cast<unsigned short>(wv(n, dy, k));
+    }
+    cutdet::fence_proxy_async();
+  }
+  // conv1_block_mma's A: step dy's m16k16 fragment, rows (channels)
+  // 16 warp + g and + 8, k 2t, 2t + 1 and 2t + 8, 2t + 9 (k = dx * 3 + c).
+  uint32_t wa[3][4];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int k = 2 * t + (f >> 1) * 8, o = 16 * warp + g + (f & 1) * 8;
+      wa[dy][f] = wv(o, dy, k) | wv(o, dy, k + 1) << 16;
+    }
+  __syncthreads();
+
+  uint32_t chk = 0;  // taps: the packed words' sum; tpose: xor
+  float sum = 0.f;   // dott: the weighted sum of acc
+  float cw[12];      // dott: the weights of this thread's channels
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    cw[i] = static_cast<float>((8 * (i / 2) + 2 * t + i % 2) % 5 + 1);
+  const uint32_t tile_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(tiles));
+  const uint32_t wt_s = static_cast<uint32_t>(__cvta_generic_to_shared(wt));
+  constexpr int kStep = kConv1Warpgroups;
+  copy_span(x, spans, b, wg, lt);
+  for (int k = 0, r = wg; r < kItems; ++k, r += kStep) {
+    // The next item's copy goes to the slot whose interleave the barrier
+    // after it closed.
+    if (r + kStep < kItems)
+      copy_span(x, spans + ((k + 1) & 1) * kSpanSlot, b, r + kStep, lt);
+    else
+      cutdet::cp_async_commit();
+    cutdet::cp_async_wait_group<1>();  // this item's bytes have landed
+    cutdet::warpgroup_sync(1 + wg);
+    interleave(spans + (k & 1) * kSpanSlot, raw, r, lt);
+    cutdet::warpgroup_sync(1 + wg);
+    if constexpr (S == kCast) {
+      if (r == 0)
+        for (int i = lt; i < kCout * kOut; i += 128)
+          part[i] = static_cast<float>(raw[kRawLead + 3 * (i % kOut)]);
+    } else {
+      for (int j = 0; j < kTiles; ++j) {
+        const uint32_t tile = tile_s + (j & 1) * kTileBytes;
+        pack_tile<false, S == kTaps>(raw, tiles + (j & 1) * kTileBytes, j, r,
+                                     plan, lt, &chk);
+        cutdet::warpgroup_sync(1 + wg);
+        if constexpr (S == kTaps) continue;
+        if constexpr (S == kDott) {
+          const int mi = (lt % 32) / 8, r8 = lt % 8;
+#pragma unroll
+          for (int pass = 0; pass < 2; ++pass) {
+            float d[24];
+#pragma unroll
+            for (int i = 0; i < 24; ++i) d[i] = 0.f;
+#pragma unroll
+            for (int i = 0; i < 24; ++i) cutdet::fence_operand(d[i]);
+            uint32_t a[3][4];
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy)
+              cutdet::ldmatrix_x4(a[dy], tile + (3 * dy + pass + 2 * warp +
+                                                 (mi & 1)) * 256 +
+                                             (mi >> 1) * 128 + r8 * 16);
+            cutdet::wgmma_fence();
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy)
+              cutdet::Wgmma<48>::mma(
+                  d, a[dy],
+                  cutdet::smem_desc(wt_s + dy * (kCout * 32), 128, 256));
+            cutdet::wgmma_commit();
+            cutdet::wgmma_wait<0>();
+#pragma unroll
+            for (int i = 0; i < 24; ++i) cutdet::fence_operand(d[i]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = 8 * pass + 16 * warp + g + 8 * h;  // tile slot
+              const int cy = n / 24, col = kConv1Cols * j + slot_col(n % 24);
+              if ((pass == 0 || n >= 64) && col < kWs) {
+                const float pw =
+                    static_cast<float>(((3 * r + cy) * kWs + col) % 7 + 1);
+#pragma unroll
+                for (int i = 0; i < 12; ++i)
+                  sum = fmaf(d[2 * (i / 2) * 2 + 2 * h + i % 2] * pw, cw[i],
+                             sum);
+              }
+            }
+          }
+          continue;
+        }
+        float d[36];
+        conv1_mma(tile, wa, d);
+        if constexpr (S == kTpose) {
+#pragma unroll
+          for (int i = 0; i < 36; i += 2) {
+            const __nv_bfloat162 z =
+                __floats2bfloat162_rn(fmaxf(d[i], 0.f), fmaxf(d[i + 1], 0.f));
+            chk ^= *reinterpret_cast<const uint32_t*>(&z);
+            d[i] = __low2float(z);
+            d[i + 1] = __high2float(z);
+          }
+        }
+        if constexpr (S == kDotn || S == kTpose) {
+          // Conv row 0 of item 4s is row 0 of strip s; tiles 0-5 hold its
+          // columns 0-143.
+          if (r % 4 == 0 && j < 6) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = kConv1Cols * j + slot_col(8 * i + 2 * t + e);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int o = 16 * warp + g + 8 * h;
+                  if (o < kCout && col < kOut)
+                    part[o * kOut + col] += d[4 * i + 2 * h + e];
+                }
+              }
+          }
+        }
+        if constexpr (S == kFull) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = 16 * warp + g + 8 * h;
+            float m[2];
+            conv1_pool(d, h, m[0], m[1]);
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int q = kConv1Windows * j + 2 * t + v;
+              if (o < kCout && q < kOutW)
+                part[q * kCout + o] += __bfloat162float(
+                    __float2bfloat16_rn(fmaxf(m[v], 0.f)));
+            }
+          }
+        }
+      }
+    }
+  }
+  cutdet::cp_async_wait_group<0>();
+
+  // The checksum: summed (taps, dott) or xored (tpose) over the block.
+  if constexpr (S == kTaps || S == kTpose) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, chk, off);
+      chk = S == kTaps ? chk + other : chk ^ other;
+    }
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = __uint_as_float(chk);
+  } else if constexpr (S == kDott) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = 0.f;
+    if constexpr (S == kTaps || S == kTpose) {
+      uint32_t all = 0;
+      for (int i = 0; i < kThreads / 32; ++i) {
+        const uint32_t c = __float_as_uint(red[i]);
+        all = S == kTaps ? all + c : all ^ c;
+      }
+      v = __uint_as_float(all);
+    } else if constexpr (S == kDott) {
+      for (int i = 0; i < kThreads / 32; ++i) v += red[i];
+    }
+    sink[b] = v;
+  }
+
+  // out: the partials added in warpgroup order; zero where the stage
+  // defines nothing.
+  float* o = out + static_cast<size_t>(b) * kOut * kOut;
+  const float* p0 = reinterpret_cast<const float*>(smem);
+  for (int i = threadIdx.x; i < kOut * kOut; i += kThreads) {
+    const int row = i / kOut, col = i % kOut;
+    int at = -1;
+    if constexpr (S == kCast || S == kDotn || S == kTpose) {
+      if (row < kCout) at = i;
+    } else if constexpr (S == kFull) {
+      if (row < kOutW && col < kCout) at = row * kCout + col;
+    }
+    float v = 0.f;
+    if (at >= 0)
+      for (int k = 0; k < kConv1Warpgroups; ++k)
+        v += p0[k * (kPartBytes / 4) + at];
+    o[i] = v;
+  }
+}
+
+template <int S>
+int launch_stages(const void* x, const void* w, void* out, void* sink,
+                  int batch, cudaStream_t stream) {
+  auto kernel = conv1_stages<S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch, kThreads, kSmem, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<const bf16*>(w),
+      static_cast<float*>(out), static_cast<float*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace stages
+
 
 template <typename I>
 int launch_mma(const void* x, const void* w, const void* bias,
@@ -1894,6 +2311,26 @@ extern "C" int cutdet_conv1_block_i8(const void* x, const void* w,
                                      int H, int W, int Cout, void* stream) {
   return launch<U8I8, false>(x, w, so, ring, scale, out, B, H, W, 3, Cout,
                              stream);
+}
+
+// The stage-bisection kernel of layer 1: x [batch, 3, 37668] uint8
+// (4-byte aligned), w [48, 32] bf16; out [batch, 128, 128] f32, sink
+// [batch] f32.
+extern "C" int cutdet_conv1_stages(int stage, const void* x, const void* w,
+                                   void* out, void* sink, int batch,
+                                   cudaStream_t stream) {
+  using namespace stages;
+  if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (stage) {
+    case kCast: return launch_stages<kCast>(x, w, out, sink, batch, stream);
+    case kTaps: return launch_stages<kTaps>(x, w, out, sink, batch, stream);
+    case kDotn: return launch_stages<kDotn>(x, w, out, sink, batch, stream);
+    case kDott: return launch_stages<kDott>(x, w, out, sink, batch, stream);
+    case kTpose:
+      return launch_stages<kTpose>(x, w, out, sink, batch, stream);
+    case kFull: return launch_stages<kFull>(x, w, out, sink, batch, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* cutdet_error_string(int err) {

@@ -11,7 +11,7 @@ swscale).  ``NativeYUVSource`` yields packed planar YUV420 at the target
 size for the ``yuv420`` transfer, whose conversion to BGR runs on the
 device (``ops.yuv``, ``ops.kernels.yuv420_to_bgr``).  The library is
 loaded by path from the repo's ``native/`` directory, built there with
-``make`` on first use when it is missing.
+``make`` on first use, under the build lock of ``native.load_built``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from __future__ import annotations
 import ctypes
 import logging
 import os
-import subprocess
 import threading
 from typing import Iterator
 
@@ -29,6 +28,7 @@ from cut_detection_tpu_torch.geometry import (
     reference_resize_dims,
     yuv420_nbytes,
 )
+from cut_detection_tpu_torch.native import load_built
 
 logger = logging.getLogger(__name__)
 
@@ -55,20 +55,9 @@ def _load():
     with _lock:
         if _lib is not None or _tried:
             return _lib
+        lib = load_built(_LIB_PATH)
         _tried = True
-        if not os.path.isfile(_LIB_PATH):
-            try:
-                subprocess.run(["make", "-C", os.path.dirname(_LIB_PATH)],
-                               check=True, capture_output=True, timeout=180)
-            except (OSError, subprocess.SubprocessError) as e:
-                logger.debug("decoder build failed: %s", e)
-                return None
-        if not os.path.isfile(_LIB_PATH):
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError as e:
-            logger.debug("decoder load failed: %s", e)
+        if lib is None:
             return None
         lib.vd_open.argtypes = [ctypes.c_char_p]
         lib.vd_open.restype = ctypes.c_void_p

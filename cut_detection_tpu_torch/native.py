@@ -5,17 +5,30 @@ Copy of the names the port calls from ``cut_detection_tpu/native.py``:
 the uint8 bilinear resize (bit-exact with OpenCV INTER_LINEAR), used when
 cv2 is missing, and the segment table's merge loops.  The library is
 loaded by path from the repo's ``native/`` directory, built there with
-``make`` on first use when it is missing; where neither works the callers
-take their numpy or cv2 paths.
+``make`` on first use; where neither works the callers take their numpy
+or cv2 paths.
+
+``load_built`` is the one way the port builds and loads a library of
+``native/`` (this one and ``data/native_video``'s decoder): it takes an
+exclusive ``flock`` on ``native/.build.lock``, runs ``make`` there only
+where the library is missing, and loads it only under that lock, so processes that
+start together (test workers, the decode subprocess) never load a file
+that another one's ``g++ -o`` is still writing.  A load that fails is
+tried once more under the lock before the caller caches the miss: a
+writer outside the lock (the JAX package's binding builds unlocked) may
+finish the file in the meantime.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -24,20 +37,56 @@ logger = logging.getLogger(__name__)
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libcutdet_native.so")
+BUILD_LOCK = os.path.join(_NATIVE_DIR, ".build.lock")
+# Seconds between the two tries of ``load_built``: time for a writer
+# outside the lock to finish a file whose load failed.
+_RETRY_DELAY_S = 2.0
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive ``flock`` on ``BUILD_LOCK`` across processes (none where
+    the directory is read-only: there nothing can be built either)."""
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.isfile(_LIB_PATH)
-    except (OSError, subprocess.SubprocessError) as e:
-        logger.debug("native build failed: %s", e)
-        return False
+        fd = os.open(BUILD_LOCK, os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        yield
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # releases the lock
+
+
+def load_built(lib_path: str, timeout: float = 180.0):
+    """``ctypes.CDLL(lib_path)`` under the build lock, after ``make -C
+    native`` where the file is missing; the loaded library, or None.  A
+    second try follows a failed load or a failed ``make``; not a ``make``
+    that succeeded without the file (the decoder where the libav headers
+    are missing), which no wait cures."""
+    for attempt in range(2):
+        if attempt:
+            time.sleep(_RETRY_DELAY_S)
+        with _build_lock():
+            if not os.path.isfile(lib_path):
+                try:
+                    subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                                   capture_output=True, timeout=timeout)
+                except (OSError, subprocess.SubprocessError) as e:
+                    logger.debug("native build failed: %s", e)
+                    continue
+                if not os.path.isfile(lib_path):
+                    return None
+            try:
+                return ctypes.CDLL(lib_path)
+            except OSError as e:
+                logger.debug("native load of %s failed: %s", lib_path, e)
+    return None
 
 
 def _load():
@@ -45,13 +94,9 @@ def _load():
     with _lock:
         if _lib is not None or _tried:
             return _lib
+        lib = load_built(_LIB_PATH, timeout=120)
         _tried = True
-        if not os.path.isfile(_LIB_PATH) and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError as e:
-            logger.debug("native load failed: %s", e)
+        if lib is None:
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
         f32p = ctypes.POINTER(ctypes.c_float)

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "cutdet_conv1_block_i8": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, so, ring, scale, out, B, H, W, Cin, Cout, stream
     "cutdet_conv_block_i8": [_P] * 6 + [_I] * 5 + [_P],
+    # stage, x, w, out, sink, B, stream
+    "cutdet_conv1_stages": [_I] + [_P] * 4 + [_I] + [_P],
 }
 
 _lock = threading.Lock()

@@ -37,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import typing
 import weakref
 
 import numpy as np
@@ -169,20 +170,22 @@ def make_classify_step(net: GluedNet, *,
 
 def resolve_transfer(transfer: str = "auto", *,
                      device: torch.device | None = None,
-                     on_device_preprocess: bool = False) -> str:
+                     on_device_preprocess: bool = False,
+                     has_preloaded: bool = False) -> str:
     """Resolve ``transfer`` ("auto"/"bgr"/"yuv420"), by the JAX package's
     rules (``cut_detection_tpu/pipeline.py:278``).
 
     "auto" is yuv420, the 1.5 B/px planar upload converted on the card,
     exactly when it can run and pays: the model runs on CUDA (on the CPU
     there is no upload to halve, and bgr keeps byte parity), the native
-    decoder has its YUV entry points, and no on-device preprocess is
-    asked for (that needs BGR frames at source resolution).  Everything
-    else is bgr.  An explicit "yuv420" without the YUV decoder raises.
+    decoder has its YUV entry points, and neither an on-device
+    preprocess (that needs BGR frames at source resolution) nor a BGR
+    decode-ahead handle (``has_preloaded``) is in play.  Everything else
+    is bgr.  An explicit "yuv420" without the YUV decoder raises.
     The odd-target fallback to bgr is per video (:func:`classify_video`).
     """
     if transfer == "auto":
-        if (on_device_preprocess or device is None
+        if (on_device_preprocess or has_preloaded or device is None
                 or device.type != "cuda" or not native_video.yuv_available()):
             return "bgr"
         return "yuv420"
@@ -235,6 +238,69 @@ def _make_source(input_path: str, *, resize: int | None,
     if decoder == "native":
         return native_video.NativeVideoSource(input_path, resize=resize)
     return VideoFrameSource(input_path, resize=resize)
+
+
+class PreloadedDecode(typing.NamedTuple):
+    """Handle returned by :func:`start_decode_ahead` (JAX
+    ``pipeline.py:223``).
+
+    Indexable like the ``(source, loader)`` pair it wraps
+    (``preloaded[1].close()`` works) while carrying the decode parameters;
+    :func:`classify_video` checks them against its own, so a bare 2-tuple
+    is refused.
+    """
+    source: object
+    loader: object
+    batch_size: int = 128
+    resize: int | None = RESIZE
+
+
+def start_decode_ahead(input_path: str, *, batch_size: int = 128,
+                       resize: int | None = RESIZE, decode_workers: int = 1,
+                       decoder: str = "cv2", prefetch_batches: int = 4,
+                       on_close=None) -> PreloadedDecode:
+    """Start host decode now, on a producer thread filling a bounded
+    ``prefetch_batches``-deep queue of BGR batches (JAX
+    ``pipeline.py:237``): a caller that must wait for the device (the
+    serving daemon's lock, the next video of :func:`segment_many`)
+    overlaps this decode with the work in flight.  Hand the handle to
+    ``classify_video(..., preloaded=...)``; on a path that does not, call
+    ``preloaded[1].close()``.  ``on_close`` fires exactly once when the
+    loader closes (drained, abandoned or refused)."""
+    from cut_detection_tpu_torch.data.loader import PrefetchLoader
+
+    source = _make_source(input_path, resize=resize,
+                          decode_workers=decode_workers, decoder=decoder)
+    loader = PrefetchLoader(batch_frames(source, batch_size),
+                            depth=prefetch_batches,
+                            on_close=on_close).start()
+    return PreloadedDecode(source, loader, batch_size, resize)
+
+
+def _take_preloaded(preloaded, *, batch_size: int,
+                    on_device_preprocess: bool, transfer: str):
+    """Check a decode-ahead handle against the run's parameters; the
+    caller closes it when this raises."""
+    if on_device_preprocess:
+        raise ValueError("preloaded decode can't combine with on-device "
+                         "preprocess (frames were already resized on the "
+                         "host)")
+    if transfer == "yuv420":
+        raise ValueError("transfer='yuv420' can't consume a BGR "
+                         "decode-ahead handle; start the request without "
+                         "preloaded decode")
+    # The frame_limit break assumes the batch size the batches were built
+    # with, and the step the size they were resized to.
+    if not isinstance(preloaded, PreloadedDecode):
+        raise TypeError("preloaded must be the PreloadedDecode handle "
+                        "returned by start_decode_ahead")
+    if preloaded.batch_size != batch_size or preloaded.resize != RESIZE:
+        raise ValueError(
+            f"preloaded decode was built with batch_size="
+            f"{preloaded.batch_size}, resize={preloaded.resize} but "
+            f"classify_video was called with batch_size={batch_size}, "
+            f"resize={RESIZE}")
+    return preloaded.source, preloaded.loader
 
 
 def _video_info(input_path: str) -> dict:
@@ -294,6 +360,7 @@ def classify_video(
     device_resize: bool = False,
     pallas_preprocess: bool = False,
     precision: str = "float32",
+    preloaded: PreloadedDecode | None = None,
 ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """Decode + classify; return per-frame ``(conf, pred, stats)``.
 
@@ -314,87 +381,103 @@ def classify_video(
     which converts them to BGR exactly as swscale does.  An odd target
     size falls back to bgr with a warning (swscale interpolates the
     chroma there, which the conversion does not reproduce).
+
+    ``preloaded``, a :func:`start_decode_ahead` handle, supplies the
+    batches in place of a decode of this call's own; it must have been
+    built at this ``batch_size`` and the resize of 256, and takes neither
+    an on-device preprocess nor yuv420 ("auto" resolves to bgr with it).
+    This call owns it: it is closed on every path, error paths included.
     """
-    if cache_path and os.path.isfile(cache_path):
-        cached = _load_cached(cache_path, frame_limit, batch_size)
-        if cached is not None:
-            return cached[0], cached[1], PipelineStats(
-                frames=int(cached[0].shape[0]))
+    try:
+        if cache_path and os.path.isfile(cache_path):
+            cached = _load_cached(cache_path, frame_limit, batch_size)
+            if cached is not None:
+                return cached[0], cached[1], PipelineStats(
+                    frames=int(cached[0].shape[0]))
 
-    if net is None:
-        if device is None:
-            raise ValueError("classify_video needs a net or a device")
-        net, _ = load_default_net(device, precision)
-        logger.info("Loaded default classifier (%s).", precision)
-    device = net.device
+        if net is None:
+            if device is None:
+                raise ValueError("classify_video needs a net or a device")
+            net, _ = load_default_net(device, precision)
+            logger.info("Loaded default classifier (%s).", precision)
+        device = net.device
 
-    on_device_preprocess = device_resize or pallas_preprocess
-    if transfer == "yuv420" and on_device_preprocess:
-        raise ValueError(
-            "transfer='yuv420' can't combine with on-device resize "
-            "(YUV frames arrive at model resolution already)")
-    asked = transfer
-    transfer = resolve_transfer(transfer, device=device,
-                                on_device_preprocess=on_device_preprocess)
-    if asked == "auto":
-        logger.info("transfer=auto resolved to %s", transfer)
-    yuv_dims = None
-    if transfer == "yuv420":
-        info = _video_info(input_path)
-        tw, th = reference_resize_dims(info["width"], info["height"], RESIZE)
-        if th % 2 or tw % 2:
-            logger.warning(
-                "transfer='yuv420' needs even target dims; %dx%d is odd — "
-                "falling back to the BGR transfer", th, tw)
-            transfer = "bgr"
+        on_device_preprocess = device_resize or pallas_preprocess
+        if transfer == "yuv420" and on_device_preprocess:
+            raise ValueError(
+                "transfer='yuv420' can't combine with on-device resize "
+                "(YUV frames arrive at model resolution already)")
+        asked = transfer
+        transfer = resolve_transfer(transfer, device=device,
+                                    on_device_preprocess=on_device_preprocess,
+                                    has_preloaded=preloaded is not None)
+        if asked == "auto":
+            logger.info("transfer=auto resolved to %s", transfer)
+        yuv_dims = None
+        if transfer == "yuv420":
+            info = _video_info(input_path)
+            tw, th = reference_resize_dims(info["width"], info["height"],
+                                           RESIZE)
+            if th % 2 or tw % 2:
+                logger.warning(
+                    "transfer='yuv420' needs even target dims; %dx%d is "
+                    "odd — falling back to the BGR transfer", th, tw)
+                transfer = "bgr"
+            else:
+                yuv_dims = (th, tw)
+
+        resize = None if on_device_preprocess else RESIZE
+        if preloaded is not None:
+            source, batches = _take_preloaded(
+                preloaded, batch_size=batch_size,
+                on_device_preprocess=on_device_preprocess, transfer=transfer)
+        elif _resolve_decode_process(decode_process, device):
+            from cut_detection_tpu_torch.data.shm_loader import ShmDecodeLoader
+
+            # On the CPU, torch.from_numpy would alias a ring slot that the
+            # decoder recycles, so take copies.  On CUDA the synchronous
+            # host->device copy has left the slot when it returns.
+            source = ShmDecodeLoader(
+                input_path, batch_size=batch_size, resize=resize,
+                decode_workers=decode_workers,
+                decode_chunk_frames=DECODE_CHUNK_FRAMES, decoder=decoder,
+                copy_out=device.type == "cpu", transfer=transfer)
+            batches = source
         else:
-            yuv_dims = (th, tw)
+            from cut_detection_tpu_torch.data.loader import PrefetchLoader
 
-    resize = None if on_device_preprocess else RESIZE
-    if _resolve_decode_process(decode_process, device):
-        from cut_detection_tpu_torch.data.shm_loader import ShmDecodeLoader
+            source = _make_source(input_path, resize=resize,
+                                  decode_workers=decode_workers,
+                                  decoder=decoder, transfer=transfer)
+            batches = PrefetchLoader(batch_frames(source, batch_size),
+                                     depth=PREFETCH_BATCHES)
 
-        # On the CPU, torch.from_numpy would alias a ring slot that the
-        # decoder recycles, so take copies.  On CUDA the synchronous
-        # host->device copy has left the slot when it returns.
-        source = ShmDecodeLoader(
-            input_path, batch_size=batch_size, resize=resize,
-            decode_workers=decode_workers,
-            decode_chunk_frames=DECODE_CHUNK_FRAMES, decoder=decoder,
-            copy_out=device.type == "cpu", transfer=transfer)
-        batches = source
-    else:
-        from cut_detection_tpu_torch.data.loader import PrefetchLoader
+        dr = None
+        if on_device_preprocess:
+            new_w, new_h = reference_resize_dims(source.video_info["width"],
+                                                 source.video_info["height"],
+                                                 RESIZE)
+            dr = (new_h, new_w)
+        conf_np, pred_np, stats = classify_batches(
+            batches, net, batch_size=batch_size,
+            length=int(source.video_info["length"]), frame_limit=frame_limit,
+            print_every=print_every, device_resize=dr,
+            pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims)
+        stats.decode_failures = getattr(source, "frames_failed", 0)
 
-        source = _make_source(input_path, resize=resize,
-                              decode_workers=decode_workers, decoder=decoder,
-                              transfer=transfer)
-        batches = PrefetchLoader(batch_frames(source, batch_size),
-                                 depth=PREFETCH_BATCHES)
-
-    dr = None
-    if on_device_preprocess:
-        new_w, new_h = reference_resize_dims(source.video_info["width"],
-                                             source.video_info["height"],
-                                             RESIZE)
-        dr = (new_h, new_w)
-    conf_np, pred_np, stats = classify_batches(
-        batches, net, batch_size=batch_size,
-        length=int(source.video_info["length"]), frame_limit=frame_limit,
-        print_every=print_every, device_resize=dr,
-        pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims)
-    stats.decode_failures = getattr(source, "frames_failed", 0)
-
-    if cache_path:
-        # Atomic write: a kill mid-save must leave no half-written cache.
-        tmp = cache_path + ".tmp.npz"
-        np.savez(tmp, conf=conf_np, pred=pred_np,
-                 frame_limit=np.int64(-1 if frame_limit is None
-                                      else frame_limit),
-                 batch_size=np.int64(batch_size))
-        os.replace(tmp, cache_path)
-        logger.info("Cached scores to %s", cache_path)
-    return conf_np, pred_np, stats
+        if cache_path:
+            # Atomic write: a kill mid-save must leave no half-written cache.
+            tmp = cache_path + ".tmp.npz"
+            np.savez(tmp, conf=conf_np, pred=pred_np,
+                     frame_limit=np.int64(-1 if frame_limit is None
+                                          else frame_limit),
+                     batch_size=np.int64(batch_size))
+            os.replace(tmp, cache_path)
+            logger.info("Cached scores to %s", cache_path)
+        return conf_np, pred_np, stats
+    finally:
+        if preloaded is not None:
+            preloaded[1].close()  # idempotent; stops the producer
 
 
 def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
@@ -536,6 +619,7 @@ def segment_video_file(
     pallas_preprocess: bool = False,
     precision: str = "float32",
     device_glue: bool = False,
+    preloaded: PreloadedDecode | None = None,
 ) -> tuple[str, Segmentation, PipelineStats]:
     """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
 
@@ -544,9 +628,12 @@ def segment_video_file(
     applies when the default net is loaded here (see
     :func:`classify_video`).  ``device_glue`` runs the smoother on the
     net's device (``segmentation.device_glue``), with the same result as
-    the host loops.
+    the host loops.  ``preloaded``: see :func:`classify_video`; closed
+    here too where this call fails before handing it on.
     """
     if not os.path.isfile(input_path):
+        if preloaded is not None:
+            preloaded[1].close()
         raise ValueError(f"{input_path} does not exist.")
     conf, pred, stats = classify_video(
         input_path, net, device=device, batch_size=batch_size,
@@ -554,7 +641,7 @@ def segment_video_file(
         decode_workers=decode_workers, cache_path=cache_path,
         decoder=decoder, decode_process=decode_process, transfer=transfer,
         device_resize=device_resize, pallas_preprocess=pallas_preprocess,
-        precision=precision)
+        precision=precision, preloaded=preloaded)
     glue_device = None
     if device_glue:
         glue_device = net.device if net is not None else torch.device(device)
@@ -565,3 +652,72 @@ def segment_video_file(
     logger.info("Writing %d segments to %s", len(seg), output_path)
     seg.write_csv(output_path)
     return output_path, seg, stats
+
+
+def segment_many(
+    input_paths: list[str],
+    output_paths: list[str] | None = None,
+    *,
+    device=None,
+    net: GluedNet | None = None,
+    precision: str = "float32",
+    pipeline_decode: bool = True,
+    **kwargs,
+) -> list[tuple[str, Segmentation, PipelineStats]]:
+    """Segment several videos with one loaded model and one step (JAX
+    ``pipeline.py:755``, without its ``mesh``).
+
+    Every video runs :func:`segment_video_file` with ``kwargs`` on the
+    same net (``net``, or the default net loaded here on ``device`` at
+    ``precision``), so the checkpoint load and the step's setup are paid
+    once.  ``transfer="auto"`` is resolved once for the batch, so that
+    decode-ahead and each video agree on the byte format.  With
+    ``pipeline_decode`` (the default) video i + 1's host decode starts
+    (:func:`start_decode_ahead`) while video i runs on the device; only
+    on the host-resize BGR path, since an on-device preprocess needs raw
+    frames and yuv420 decodes planes.  A handle not handed on is closed
+    on every exit.
+    """
+    if output_paths is not None and len(output_paths) != len(input_paths):
+        raise ValueError(
+            f"output_paths has {len(output_paths)} entries for "
+            f"{len(input_paths)} inputs — must match (or be None for "
+            "default naming)")
+    if net is None:
+        if device is None:
+            raise ValueError("segment_many needs a net or a device")
+        net, _ = load_default_net(device, precision)
+    on_device_preprocess = bool(kwargs.get("device_resize")
+                                or kwargs.get("pallas_preprocess"))
+    if kwargs.get("transfer", "auto") == "auto":
+        kwargs["transfer"] = resolve_transfer(
+            "auto", device=net.device,
+            on_device_preprocess=on_device_preprocess)
+    can_pre = pipeline_decode and not (on_device_preprocess
+                                       or kwargs["transfer"] == "yuv420")
+    pres: dict = {}
+
+    def start_pre(i: int) -> None:
+        if (can_pre and 0 <= i < len(input_paths)
+                and os.path.isfile(input_paths[i])):
+            try:
+                pres[i] = start_decode_ahead(
+                    input_paths[i],
+                    batch_size=kwargs.get("batch_size", 128),
+                    decode_workers=kwargs.get("decode_workers", 1),
+                    decoder=kwargs.get("decoder", "cv2"))
+            except Exception:  # the video decodes in its own call instead
+                logger.exception("decode-ahead failed for %s",
+                                 input_paths[i])
+
+    results = []
+    try:
+        for i, path in enumerate(input_paths):
+            start_pre(i + 1)
+            out = output_paths[i] if output_paths else None
+            results.append(segment_video_file(
+                path, out, net=net, preloaded=pres.pop(i, None), **kwargs))
+    finally:
+        for pre in pres.values():  # leftovers on an early exit
+            pre[1].close()
+    return results

@@ -9,9 +9,10 @@ with as many parameters as its binding passes, whether written out or
 through a macro such as ``CUTDET_CONV_BLOCK(NAME, ...)``.  They also
 hold ``chip_smoke.KERNEL_ROWS`` to the tree: each row's source exists and
 its ``replaces`` names the ``def`` line of a Pallas kernel (a function of
-``cut_detection_tpu/ops/pallas/`` whose module calls ``pl.pallas_call``)
-or, for a row of ``chip_smoke.XLA_ROWS``, the ``def`` of the op the JAX
-package leaves to XLA (outside ``ops/pallas/``, no ``pallas_call``).
+``cut_detection_tpu/ops/pallas/``, or of ``scripts/`` for the profiling
+kernel of ``scripts/profile_fused_conv1.py``, whose module calls
+``pl.pallas_call``) or, for a row of ``chip_smoke.XLA_ROWS``, the ``def``
+of the op the JAX package leaves to XLA (elsewhere, no ``pallas_call``).
 """
 
 import glob
@@ -89,8 +90,8 @@ def test_kernel_row_replaces_a_def(row):
         source = f.read()
     text = source.splitlines()[int(line) - 1]
     assert text.startswith("def "), f"{row[3]} is {text!r}"
-    pallas = path.startswith("cut_detection_tpu/ops/pallas/") and \
-        "pallas_call" in source
+    pallas = path.startswith(("cut_detection_tpu/ops/pallas/", "scripts/")) \
+        and "pallas_call" in source
     assert pallas != (row[0] in chip_smoke.XLA_ROWS), row
 
 

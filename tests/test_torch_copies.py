@@ -8,7 +8,8 @@ it calls: ``config``, ``checkpoint.io``, ``geometry`` (held by
 ``utils.profiling``, ``native``, ``data.video`` (with the yuv backend of
 ``ParallelVideoReader``), ``data.native_video`` (``NativeVideoSource``,
 ``NativeYUVSource``, ``yuv420_to_bgr24_host``), ``data.loader``,
-``data.shm_loader`` (both transfers) and ``cli.evaluate``.  The prod
+``data.shm_loader`` (both transfers), ``cli.evaluate`` and
+``ops.kernels.conv1_stages._strip_rows_for``.  The prod
 classifier's files are read by path from the JAX package's directory.
 """
 
@@ -46,6 +47,27 @@ CORPUS = os.path.join(REPO, "tests", "eval_corpus")
 CLIPS = ["clip.mp4", "clip_odd.mp4"]
 PROD_JSON = os.path.join(os.path.dirname(cut_detection_tpu.__file__),
                          "prod_net", "init_model_model_params.json")
+
+
+def test_strip_rows_for_matches():
+    """``ops.kernels.conv1_stages._strip_rows_for`` (the profiling
+    kernel's strip height) against ``ops/pallas/fused_conv1.py``'s, at
+    every pool-aligned height up to 300 and every cap up to 30, and on
+    a height it cannot split."""
+    from cut_detection_tpu.ops.pallas.fused_conv1 import (
+        _strip_rows_for as theirs,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv1_stages import (
+        _strip_rows_for as ours,
+    )
+
+    for h in range(3, 301, 3):
+        for cap in range(3, 31):
+            assert ours(h, cap) == theirs(h, cap), (h, cap)
+    assert ours(144, cap=12) == 12
+    for fn in (ours, theirs):
+        with pytest.raises(ValueError, match="pool-aligned"):
+            fn(7, 3)
 
 
 def test_config_matches():
@@ -124,7 +146,58 @@ def test_decoded_frames_match(clip, resize):
         assert ours.frames_failed == theirs.frames_failed == 0
 
 
-def test_native_decoder_matches():
+@pytest.fixture(scope="module")
+def native_libs():
+    """Both native libraries, built through the port's locked path
+    (``native.load_built``) before any comparison runs.  Test workers
+    that start together in a fresh checkout race to build them, and the
+    JAX package's bindings build unlocked and cache a miss for the life
+    of the process (``_lib is None and _tried``); where one did, that
+    cache is cleared here, so that both packages' bindings load the same
+    finished file.  No code of the JAX package changes."""
+    native.available()
+    native_video.available()
+    for binding in (jax_native, jax_native_video):
+        if binding._lib is None and binding._tried:
+            binding._tried = False
+
+
+def test_load_built_makes_only_a_missing_library(tmp_path, monkeypatch):
+    """``native.load_built`` runs ``make`` only where the library is
+    missing (a present one loads at once, in every decode child), tries a
+    failed load or a failed ``make`` once more, and gives up at once when
+    ``make`` succeeds without the file."""
+    monkeypatch.setattr(native, "_RETRY_DELAY_S", 0.0)
+    monkeypatch.setattr(native, "BUILD_LOCK", str(tmp_path / ".build.lock"))
+    makes, loads = [], []
+    fail_make = []
+
+    def run(cmd, **kwargs):
+        makes.append(cmd)
+        if fail_make:
+            raise subprocess.CalledProcessError(2, cmd)
+
+    def cdll(path):
+        loads.append(path)
+        if len(loads) == 1:
+            raise OSError("file too short")
+        return "lib"
+
+    monkeypatch.setattr(native.subprocess, "run", run)
+    monkeypatch.setattr(native.ctypes, "CDLL", cdll)
+    present = tmp_path / "present.so"
+    present.write_bytes(b"\x7fELF")
+    assert native.load_built(str(present)) == "lib"
+    assert makes == [] and loads == [str(present)] * 2
+    missing = str(tmp_path / "missing.so")
+    assert native.load_built(missing) is None
+    assert makes == [["make", "-C", native._NATIVE_DIR]]
+    fail_make.append(True)
+    assert native.load_built(missing) is None
+    assert len(makes) == 3 and len(loads) == 2
+
+
+def test_native_decoder_matches(native_libs):
     """The native libav decoder through the port's bindings, sequential
     and after a seek, against the JAX package's.  On ``clip.mp4`` only:
     the JAX package's binding hands the library a buffer exactly as long
@@ -148,7 +221,7 @@ def test_native_decoder_matches():
     theirs.close()
 
 
-def test_native_bgr_decode_of_unaligned_rows():
+def test_native_bgr_decode_of_unaligned_rows(native_libs):
     """``clip_odd.mp4`` (426x240: BGR rows of 1278 bytes) through the
     port's ``NativeVideoSource``, in a subprocess because an overrun
     aborts the interpreter: at ``resize=None`` and ``resize=256`` its 200
@@ -180,7 +253,7 @@ def test_native_bgr_decode_of_unaligned_rows():
 
 
 @pytest.mark.parametrize("clip", CLIPS)
-def test_native_yuv_source_matches(clip):
+def test_native_yuv_source_matches(clip, native_libs):
     """``NativeYUVSource`` through the port's binding, sequential and
     after a seek, against the JAX package's: the same vectors byte for
     byte (the YUV entries decode ``clip_odd.mp4`` through either)."""
@@ -206,10 +279,11 @@ def test_native_yuv_source_matches(clip):
     theirs.close()
 
 
-def test_yuv_parallel_reader_matches():
+def test_yuv_parallel_reader_matches(native_libs):
     """``ParallelVideoReader(backend="yuv")`` (3 threads, 64-frame chunks)
     against the JAX package's, batched the same way."""
-    if not native_video.yuv_available():
+    if not (native_video.yuv_available()
+            and jax_native_video.yuv_available()):
         pytest.skip("native decoder with YUV entry points not built")
     path = os.path.join(GOLDEN, "clip.mp4")
     ours = video.ParallelVideoReader(path, resize=256, num_threads=3,
@@ -227,7 +301,7 @@ def test_yuv_parallel_reader_matches():
     assert ours.frames_failed == theirs.frames_failed == 0
 
 
-def test_native_library_matches():
+def test_native_library_matches(native_libs):
     """The merge loops and the resize of the native host library, through
     both packages' bindings, on seeded tables and images."""
     if not (native.available() and jax_native.available()):
@@ -274,14 +348,14 @@ def test_prefetch_loader_matches():
         loader.PrefetchLoader(iter(items), depth=0)
 
 
-def test_shm_loader_matches():
+def test_shm_loader_matches(native_libs):
     """The decode subprocess's batches (copies, as on the CPU) equal the
     JAX package's, 64 frames at a time, and it reports the same video:
     BGR frames, and the yuv420 ring's packed planes (where the native YUV
     decoder is built)."""
     path = os.path.join(GOLDEN, "clip_odd.mp4")
     transfers = ["bgr"] + (["yuv420"] if native_video.yuv_available()
-                           else [])
+                           and jax_native_video.yuv_available() else [])
     for transfer in transfers:
         ours = shm_loader.ShmDecodeLoader(path, batch_size=64, copy_out=True,
                                           transfer=transfer)

@@ -958,3 +958,62 @@ def test_cli_yuv420_on_card_matches_golden_csv(cuda_dev, tmp_path, clip, ref,
     assert yuv420_to_bgr.launches == n + 2  # 200-220 frames, batch 128
     with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("stage", ["cast", "taps", "dotn", "dott", "tpose",
+                                   "full"])
+def test_conv1_stages_kernel(cuda_dev, stage):
+    """Each stage of the layer-1 stage-bisection kernel against its plain
+    version at batch 3 of the profiling script's seeded inputs, by
+    ``conv1_stages.check_stage`` (``cast`` and ``taps`` exact, the sums
+    within the tolerances stated there), one launch a call."""
+    from cut_detection_tpu_torch.ops.kernels import conv1_stages as cs
+    from cut_detection_tpu_torch.scripts.profile_fused_conv1 import (
+        seeded_inputs,
+    )
+
+    x, w = seeded_inputs(3, cuda_dev)
+    before = cs.conv1_stages.instance_launches[stage]
+    got = cs.conv1_stages(x, w, stage)
+    torch.cuda.synchronize()
+    assert cs.conv1_stages.instance_launches[stage] == before + 1
+    cs.check_stage(stage, x, w, got, cs.conv1_stages_plain(x, w, stage))
+    assert torch.isfinite(got[0]).all()
+    if stage in ("dotn", "tpose", "full"):
+        assert got[0].abs().max() > 10.0
+
+
+def test_served_request_launches_the_block_kernels(cuda_dev, tmp_path):
+    """One ``/segment`` request to the daemon on the card: the reference's
+    CSV bytes (float32, bgr), and the request's two batches launched
+    ``conv1_block[f32]`` twice and ``conv_block[f32]`` four times."""
+    if importlib.util.find_spec("cv2") is None:
+        pytest.skip("needs cv2 to decode the golden clips")
+    import threading
+    import urllib.request
+
+    from cut_detection_tpu_torch.cli import serve
+
+    srv, state = serve.make_server("127.0.0.1", 0, device=cuda_dev)
+    loop = threading.Thread(target=srv.serve_forever, daemon=True)
+    loop.start()
+    out = str(tmp_path / "served.csv")
+    before = (dict(conv1_block.instance_launches),
+              dict(conv_block.instance_launches))
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/segment",
+            data=json.dumps({"input_path": os.path.join(GOLDEN, "clip.mp4"),
+                             "output_path": out,
+                             "transfer": "bgr"}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            data = json.loads(resp.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert data["stats"]["batches"] == 2
+    assert conv1_block.instance_launches["f32"] - before[0]["f32"] == 2
+    assert conv_block.instance_launches["f32"] - before[1]["f32"] == 4
+    with open(out, "rb") as f, open(os.path.join(GOLDEN, "ref_segments.csv"),
+                                    "rb") as g:
+        assert f.read() == g.read()
