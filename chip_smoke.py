@@ -135,6 +135,25 @@ Phases, each of which raises on failure:
              score vector (a 3-hour game at 30 fps) against the host
              glue on the same vector: the same segments (means within
              1e-5), each one's time and the card's loop iterations.
+11. train  — training on the card: the prod net's shape (conv 3->48->48->48,
+             pool 4, FC 768->32->3) on a fixed batch of 128 synthetic
+             144x256 frames at float32 (20 steps) and ``bfloat16`` (10),
+             and the contrastive defaults (32 channels, pool 1, FC
+             3x32->8) on 32 frames of 360x640 with each augment path (10
+             steps each): one step card against CPU at each precision
+             (loss, BN statistics and every gradient leaf within the
+             stated tolerances, which a control step must fail), the
+             loss falling on the fixed batch, the validation pass's
+             ``conv_block`` launches and its logits against the same net
+             on the CPU, the views of one seed on the card against the
+             CPU's; each loop's ms a step, frames/s, peak memory and a
+             trace of 3 steps (busy share, top kernels).  Then both
+             training CLIs on a tree of labelled JPEGs: contrastive
+             pretraining, supervised training warm-started from it with
+             snapshots, the ``.pt`` export and ``--resume``; the
+             validation passes' launches, and the trained triplet through
+             the classify step on the card and the CPU (every class
+             predicted, the same classes).
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -145,6 +164,7 @@ one JSON line with every kernel's numbers, and last the result line
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -1140,10 +1160,10 @@ def phase_host(dev, frames):
     return out
 
 
-def trace_loop(tag: str, loop, reps: int) -> float | None:
+def trace_loop(tag: str, loop, reps: int, top: int = 6) -> float | None:
     """Run ``loop`` (``reps`` batches) under ``torch.profiler`` and log the
-    card's busy share and the costliest kernels per batch; return the
-    busy share in percent (None if the trace holds no kernel)."""
+    card's busy share and the ``top`` costliest kernels per batch; return
+    the busy share in percent (None if the trace holds no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1161,8 +1181,8 @@ def trace_loop(tag: str, loop, reps: int) -> float | None:
         f"ms: kernels {kernel_ms:.4f} ms ({100 * kernel_ms / traced_ms:.1f}%"
         f" busy, from the trace), copies {copy_ms:.4f} ms "
         f"({100 * copy_ms / traced_ms:.1f}%)")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
-    for name, (ms, count) in top:
+    for name, (ms, count) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
         log(f"{tag}:   {ms / reps:.4f} ms per batch, {count} launches: "
             f"{name[:100]}")
     return 100 * kernel_ms / traced_ms
@@ -1655,6 +1675,395 @@ def phase_device_glue(dev):
                              "host glue")
 
 
+# The train phase: steps on a fixed batch at each precision, the
+# contrastive loop's steps with each augment path, then both training CLIs
+# on a frame tree.
+TRAIN_STEPS = {"float32": 20, "bfloat16": 10}
+CONTRASTIVE_STEPS = 10
+CONTRASTIVE_HW = (360, 640)  # the contrastive frames (360p) -> 144x256 views
+CHECK_BATCH = 32             # the step held card against CPU
+# One step, card against CPU, from the same weights on the same batch:
+# cuDNN's summation order against the CPU's (measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: loss 2.2e-7, gradients 7.9e-4, BN 6e-8 at float32;
+# loss 2.7e-5, gradients 6.1e-3, BN 1.1e-5 at bf16; the worst gradient
+# leaf, in relative norm, layer 1's conv weight at float32 and a conv bias
+# at bf16).  The gradient bar must also fail a control step: at float32
+# the same step with TF32 allowed (9.3e-2 measured), at bf16 the float32
+# step (0.35).
+TRAIN_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-4}
+TRAIN_GRAD_RTOL = {"float32": 2e-3, "bfloat16": 2e-2}
+TRAIN_BN_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+VIEW_TOL = 1e-5              # views: all but 0.1% of the pixels
+# The training CLIs' frame tree: 144x256 JPEGs in labelled segments of one
+# colour each (BGR, plus noise), cycling A22 / EZ / blank.
+TREE_FRAMES = 4096
+TREE_SEGMENT = 128
+TREE_COLOURS = {"a22": (40, 120, 40), "ez": (60, 60, 150), "b": (10, 10, 10)}
+TREE_MIN_ACC = 0.9           # the trained triplet on the tree's frames
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _train_labels(n: int) -> np.ndarray:
+    """Labels 0, 1, 2, 0, 1 in five runs of the batch.  The runs do not
+    follow ``synthetic_frames``' colour blocks, so the net fits the
+    frames' noise as well as their colours."""
+    return (np.arange(n) * 5 // n % 3).astype(np.int64)
+
+
+def _bn_leaves(net) -> list:
+    return [b.cpu().numpy() for k, b in net.state_dict().items()
+            if "running_" in k]
+
+
+def _grads(net) -> dict:
+    return {n: p.grad.cpu().numpy() for n, p in net.named_parameters()}
+
+
+def _one_step(cfg, where, frames, labels):
+    """One train step from seed 1's weights: the loss, the gradients by
+    parameter name and the new BN statistics."""
+    from cut_detection_tpu_torch.train.supervised import (
+        init_train_state,
+        make_train_step,
+    )
+
+    state = init_train_state(torch.Generator().manual_seed(1), cfg, where)
+    state, m = make_train_step(cfg)(state, frames, labels)
+    return float(m["loss"]), _grads(state.net), _bn_leaves(state.net)
+
+
+def _worst_leaf(grads, ref) -> tuple[str, float]:
+    return max(((n, _rel(grads[n], ref[n])) for n in ref),
+               key=lambda t: t[1])
+
+
+def train_step_card_vs_cpu(dev, cfg, frames, labels) -> str:
+    """One step from the same weights on the same batch on the card and on
+    the CPU (plain PyTorch both): the loss, the BN statistics and every
+    gradient leaf; then a control step on the card, which the gradient
+    bar must fail (float32: TF32 allowed; bf16: the float32 step)."""
+    from cut_detection_tpu_torch.utils.device import strict_fp32
+
+    prec = "float32" if cfg.compute_dtype is None else "bfloat16"
+    lc, gc, bc = _one_step(cfg, dev, frames, labels)
+    lh, gh, bh = _one_step(cfg, torch.device("cpu"), frames, labels)
+    if prec == "float32":
+        control = "TF32 allowed"
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, gx, _ = _one_step(cfg, dev, frames, labels)
+        finally:
+            strict_fp32()
+    else:
+        control = "the float32 step"
+        _, gx, _ = _one_step(dataclasses.replace(cfg, compute_dtype=None),
+                             dev, frames, labels)
+    loss_err = abs(lc - lh) / abs(lh)
+    leaf, grad_err = _worst_leaf(gc, gh)
+    xleaf, ctrl_err = _worst_leaf(gx, gh)
+    bn_err = max(float(np.abs(a - b).max()) for a, b in zip(bc, bh))
+    bar = TRAIN_GRAD_RTOL[prec]
+    msg = (f"{prec} step card vs CPU at batch {len(frames)}: loss "
+           f"{lc:.6f} / {lh:.6f} (rel {loss_err:.2e}, tol "
+           f"{TRAIN_LOSS_RTOL[prec]:.0e}), BN statistics max diff "
+           f"{bn_err:.2e} (tol {TRAIN_BN_TOL[prec]:.0e}), gradients worst "
+           f"leaf rel {grad_err:.2e} ({leaf}; tol {bar:.0e}); control "
+           f"({control}) worst leaf rel {ctrl_err:.2e} ({xleaf}; must "
+           f"exceed the tol)")
+    if (loss_err > TRAIN_LOSS_RTOL[prec] or bn_err > TRAIN_BN_TOL[prec]
+            or grad_err > bar or ctrl_err <= bar):
+        raise AssertionError(f"train: {msg}")
+    return msg
+
+
+def train_supervised_run(dev, card, cfg, frames, labels) -> dict:
+    """``TRAIN_STEPS`` steps on the fixed batch (the loss must fall), timed;
+    the validation pass (the block kernels' launches counted, its logits
+    against the same net on the CPU)."""
+    from cut_detection_tpu_torch.models.assembly import GluedNet
+    from cut_detection_tpu_torch.ops.preprocess import to_unit
+    from cut_detection_tpu_torch.train.supervised import (
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    prec = "float32" if cfg.compute_dtype is None else "bfloat16"
+    steps = TRAIN_STEPS[prec]
+    state = init_train_state(torch.Generator().manual_seed(0), cfg, dev)
+    step = make_train_step(cfg)
+    x = torch.from_numpy(frames).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, x, y)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = float(np.median(times[2:]))
+    log(f"train: {prec} supervised, batch {len(frames)} of "
+        f"{frames.shape[1]}x{frames.shape[2]}: {steps} steps, "
+        f"{ms:.4f} ms a step (median, after 2), "
+        f"{1e3 * len(frames) / ms:.1f} frames/s, first step "
+        f"{times[0]:.1f} ms, peak {peak:.1f} MiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.8 * losses[0]):
+        raise AssertionError(f"train: {prec} loss did not fall on a fixed "
+                             f"batch: {losses}")
+    busy = trace_loop(f"train: {prec} step trace",
+                      lambda: [step(state, x, y) for _ in range(3)], 3,
+                      top=10)
+
+    # The validation pass: the eval step on the card launches the block
+    # kernels (the float frames go to conv_block at every layer).
+    want = ({"conv_block[f32]": 3} if prec == "float32" else
+            {"conv_block[bf16_xla]": 2, "conv_block[bf16_xla_f32]": 1})
+    zero_launches()
+    metrics = make_eval_step(cfg)(state, x, y)
+    got = read_launches()
+    check_launches(f"train {prec} validation", got,
+                   {**dict.fromkeys(got, 0), **want})
+    with torch.no_grad():
+        logits = state.net(to_unit(x)).cpu()
+        plain = GluedNet(state.net.model_params, state.net.precision)
+        plain.load_state_dict(state.net.state_dict())
+        ref = plain(to_unit(torch.from_numpy(frames)))
+        # The same batch under its own statistics (train mode, nothing
+        # applied): the eval pass's running statistics still hold 0.9^20
+        # of their initial values after 20 steps at momentum 0.1.
+        state.net.train()
+        batch_pred = state.net(to_unit(x)).argmax(dim=1).cpu().numpy()
+        state.net.conv.bn_stats.clear()
+        state.net.linear.bn_stats.clear()
+        state.net.eval()
+    err = float((logits - ref).abs().max())
+    tol = CONF_TOL if prec == "float32" else BF16_CONF_TOL
+    log(f"train: {prec} validation pass, launches {want}, per-class "
+        f"correct {metrics['correct'].tolist()} of "
+        f"{metrics['total'].tolist()} (under the batch's own statistics "
+        f"{np.bincount(batch_pred[batch_pred == labels], minlength=3).tolist()}"
+        f"); logits against the plain eval "
+        f"forward on the CPU max diff {err:.3e} (tol {tol:.0e})")
+    if err > tol:
+        raise AssertionError(f"train: {prec} validation logits differ by "
+                             f"{err}")
+    return {"ms": ms, "fps": 1e3 * len(frames) / ms, "peak_mib": peak,
+            "busy": busy}
+
+
+def write_frame_tree(path: str, n: int, seed: int = 5) -> None:
+    """``n`` 144x256 JPEGs ``frame_%07d.jpg`` under ``path`` in segments of
+    ``TREE_SEGMENT`` frames of one class each, and their ``frames.csv``
+    (``start,label`` rows), written with the cv2 that the port's
+    ``data/frames.py`` reads them with."""
+    from cut_detection_tpu_torch.data.frames import cv2
+
+    names = list(TREE_COLOURS)
+    rows, labels = [], np.empty(n, np.int64)
+    for k, start in enumerate(range(0, n, TREE_SEGMENT)):
+        rows.append(f"{start},{names[k % 3]}")
+        labels[start:start + TREE_SEGMENT] = k % 3
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(0, 30, (61, 144, 256, 3), dtype=np.int16)
+    base = np.array([TREE_COLOURS[c] for c in names], np.int16)
+    for i in range(n):
+        img = np.clip(base[labels[i]] + noise[i % len(noise)], 0, 255)
+        cv2.imwrite(os.path.join(path, f"frame_{i:07d}.jpg"),
+                    img.astype(np.uint8))
+    with open(os.path.join(path, "frames.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def train_cli_run(dev, card, workdir) -> str:
+    """Both training CLIs on the card as a user runs them, on a tree of
+    ``TREE_FRAMES`` labelled frames: contrastive pretraining of the prod
+    backbone (``--fast-augment``, 48 channels, one epoch), supervised
+    training warm-started from it (``--load-conv-net --data-parallel``,
+    one card: unsharded) for 2 of 3 epochs with a snapshot each epoch and
+    the ``.pt`` export, then ``--resume`` for the third.  Held: the
+    validation passes' ``conv_block`` launches, the snapshots' epoch
+    numbering, the ``.pt`` files equal to the bundles, and the triplet
+    through the classify step on the card and the CPU on the tree's
+    frames: the same classes, every class predicted, accuracy at least
+    ``TREE_MIN_ACC``."""
+    from cut_detection_tpu_torch.cli import train_contrastive, train_supervised
+    from cut_detection_tpu_torch.data.frames import SupervisedFrameDataset
+    from cut_detection_tpu_torch.models.assembly import (
+        load_and_glue_nets,
+        load_triplet_or_default,
+    )
+    from cut_detection_tpu_torch.pipeline import make_classify_step
+
+    tree = os.path.join(workdir, "tree")
+    models = os.path.join(workdir, "tree_models")
+    os.makedirs(tree)
+    t0 = time.perf_counter()
+    write_frame_tree(tree, TREE_FRAMES)
+    t_tree = time.perf_counter() - t0
+    named = ["--model-dir", models, "--model-name", "smoke"]
+    t0 = time.perf_counter()
+    train_contrastive.main(["--data-dir", tree, "--fast-augment",
+                            "--conv-hidden-channels", "48", "--epochs", "1",
+                            *named])
+    t_con = time.perf_counter() - t0
+    sup = ["--data-dirs", tree, "--checkpoint-every-n", "1",
+           "--export-torch", *named]
+    zero_launches()
+    t0 = time.perf_counter()
+    train_supervised.main([*sup, "--load-conv-net", "--data-parallel",
+                           "--epochs", "2"])
+    t_sup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_supervised.main([*sup, "--resume", "--epochs", "3"])
+    t_res = time.perf_counter() - t0
+    got = read_launches()
+    n_valid = TREE_FRAMES - int(np.floor(TREE_FRAMES * 0.75))
+    val_batches = -(-n_valid // BATCH)
+    check_launches("train CLI validation passes", got,
+                   {**dict.fromkeys(got, 0),
+                    "conv_block[f32]": 3 * val_batches * 3})
+    snaps = sorted(f for f in os.listdir(models)
+                   if re.fullmatch(r"train_state_\d{4}\.npz", f))
+    with open(os.path.join(models, "train_state_meta.json")) as f:
+        meta = json.load(f)
+    if snaps != [f"train_state_{e:04d}.npz" for e in range(3)] \
+            or meta["epoch"] != 2:
+        raise AssertionError(f"train CLI snapshots {snaps}, meta {meta}")
+
+    # Every 8th frame of the tree as the dataset reads it (RGB), flipped
+    # to BGR as the classify step takes decoded video.
+    ds = SupervisedFrameDataset(tree, "frames.csv")
+    items = [ds[i] for i in range(0, TREE_FRAMES, 8)]
+    bgr = np.stack([it["x"][..., ::-1] for it in items])
+    labels = np.array([it["y"] for it in items])
+    out = []
+    for where in (dev, torch.device("cpu")):
+        net, _ = load_triplet_or_default(models, "smoke", where)
+        step = make_classify_step(net)
+        res = [step(torch.from_numpy(bgr[i:i + BATCH]).to(where))
+               for i in range(0, len(bgr), BATCH)]
+        out.append((torch.cat([c for c, _ in res]).cpu().numpy(),
+                    torch.cat([p for _, p in res]).cpu().numpy()))
+    (cc, pc), (ch, ph) = out
+    pt, _ = load_and_glue_nets(
+        *(os.path.join(models, f"smoke{suffix}") for suffix in (
+            "_model_params.json", "_classifier_conv.pt",
+            "_classifier_linear.pt")), torch.device("cpu"))
+    sd_pt, sd_npz = pt.state_dict(), net.state_dict()
+    pt_same = sd_pt.keys() == sd_npz.keys() and all(
+        torch.equal(sd_pt[k], sd_npz[k]) for k in sd_npz)
+    err = float(np.abs(cc - ch).max())
+    acc = float((pc == labels).mean())
+    classes = np.bincount(pc, minlength=3).tolist()
+    msg = (f"train: CLIs on a tree of {TREE_FRAMES} 144x256 JPEGs (written "
+           f"in {t_tree:.1f} s): train_contrastive --fast-augment 1 epoch "
+           f"{t_con:.1f} s; train_supervised --load-conv-net epochs 1-2 "
+           f"{t_sup:.1f} s, --resume epoch 3 {t_res:.1f} s "
+           f"({3 * TREE_FRAMES / (t_sup + t_res):.1f} frames/s with "
+           f"loading and validation); validation launches "
+           f"{ {k: v for k, v in got.items() if v} }; snapshots {snaps}; "
+           f".pt {'equal to' if pt_same else 'DIFFER from'} the bundles; "
+           f"triplet -> classify step on {len(bgr)} frames: classes "
+           f"{classes}, accuracy {acc:.4f} (min {TREE_MIN_ACC}), conf card "
+           f"vs CPU {err:.3e} [{card}]")
+    log(msg)
+    if not (pt_same and np.array_equal(pc, ph) and err <= CONF_TOL
+            and np.isfinite(cc).all() and min(classes) > 0
+            and acc >= TREE_MIN_ACC):
+        raise AssertionError(msg)
+    return msg
+
+
+def train_contrastive_run(dev, card, cfg, frames) -> dict:
+    """The views of one seed on the card against the CPU's; then
+    ``CONTRASTIVE_STEPS`` steps of the contrastive loop's step (views made
+    on the card), timed."""
+    from cut_detection_tpu_torch.train import augment
+    from cut_detection_tpu_torch.train.contrastive import (
+        init_contrastive_state,
+        make_contrastive_step,
+    )
+
+    tag = "fast" if cfg.fast_augment else "exact"
+    two_views = (augment.fast_simclr_two_views if cfg.fast_augment
+                 else augment.simclr_two_views)
+    x = torch.from_numpy(frames).to(dev)
+    card_views, cpu_views = (
+        two_views(torch.Generator().manual_seed(7), xx).cpu().numpy()
+        for xx in (x, torch.from_numpy(frames)))
+    diff = np.abs(card_views - cpu_views).max(axis=-1)
+    off = float((diff > VIEW_TOL).mean())
+    log(f"train: {tag} views of seed 7, card vs CPU: "
+        f"{cpu_views.shape}, max diff {float(diff.max()):.3e}, "
+        f"{off:.4%} of the pixels beyond {VIEW_TOL:.0e}")
+    if off > 1e-3:
+        raise AssertionError(f"train: {tag} views differ card vs CPU")
+
+    gen = torch.Generator().manual_seed(cfg.seed)
+    state = init_contrastive_state(gen, cfg, dev)
+    step = make_contrastive_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(CONTRASTIVE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, gen, x)
+        losses.append(float(m["loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = float(np.median(times[2:]))
+    log(f"train: contrastive ({tag} views), batch {len(frames)} of "
+        f"{frames.shape[1]}x{frames.shape[2]} -> 2x{len(frames)} views of "
+        f"144x256: {CONTRASTIVE_STEPS} steps, {ms:.4f} ms a step (median, "
+        f"after 2), {1e3 * len(frames) / ms:.1f} frames/s, peak "
+        f"{peak:.1f} MiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} [{card}]")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: contrastive {tag} loss {losses}")
+    busy = trace_loop(f"train: contrastive {tag} step trace",
+                      lambda: [step(state, gen, x) for _ in range(3)], 3,
+                      top=10)
+    return {"ms": ms, "fps": 1e3 * len(frames) / ms, "peak_mib": peak,
+            "busy": busy}
+
+
+def phase_train(dev, card, workdir):
+    """Training on the card at the prod net's shape (conv 3->48->48->48,
+    pool 4, FC 768->32->3; batch 128 of 144x256 synthetic frames) and the
+    contrastive defaults (32 channels, pool 1, 3x32->8; batch 32 of
+    360x640): one step card against CPU at each precision, the loss falling
+    on a fixed batch, the validation pass's kernel launches and logits,
+    the views card against CPU, and each loop's ms a step, frames/s and
+    peak memory; then both training CLIs on a frame tree, the trained
+    triplet through the classify step (``train_cli_run``)."""
+    from cut_detection_tpu_torch.config import ContrastiveConfig, TrainConfig
+
+    # synthetic_frames rounds each colour block's share, so ask for more.
+    frames = synthetic_frames(BATCH + 8)[:BATCH]
+    labels = _train_labels(BATCH)
+    sub = np.linspace(0, BATCH - 1, CHECK_BATCH).astype(int)
+    out = {}
+    for prec in ("float32", "bfloat16"):
+        cfg = TrainConfig(compute_dtype=None if prec == "float32"
+                          else prec)
+        log("train: " + train_step_card_vs_cpu(dev, cfg, frames[sub],
+                                               labels[sub]))
+        out[prec] = train_supervised_run(dev, card, cfg, frames, labels)
+    src = synthetic_frames(40, *CONTRASTIVE_HW, seed=3)[:32]
+    for fast in (False, True):
+        cfg = ContrastiveConfig(fast_augment=fast)
+        out["fast" if fast else "exact"] = train_contrastive_run(
+            dev, card, cfg, src)
+    train_cli_run(dev, card, workdir)
+    return out
+
+
 def phase_bench(dev):
     """The port's ``bench_fused_conv1`` entry point at batch 128.
 
@@ -2106,6 +2515,7 @@ def run() -> tuple[str, list[dict]]:
         timed("golden", phase_golden, wd)
         paths["serve"] = timed("serve", phase_serve, dev, wd)
         timed("device_glue", phase_device_glue, dev)
+        timed("train", phase_train, dev, card, wd)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -9,11 +9,14 @@ names so each piece has an obvious counterpart:
 - ``models``             ``nn.Module`` blocks, nets and the glued classifier.
 - ``segmentation``       host-side run-length table, orphan glue, CSV.
 - ``pipeline``           decode -> classify -> segment -> CSV.
-- ``cli.segment_video``  the ``segment_video`` command line.
+- ``train``              losses, augmentation, the supervised and SimCLR
+                         loops and their checkpoints.
+- ``cli``                the ``segment_video``, ``segment_videos``,
+                         ``serve``, ``evaluate`` and training command lines.
 - ``scripts``            measurement entry points (``bench_fused_conv1``).
 
 The port imports nothing of ``cut_detection_tpu``: ``config``,
-``checkpoint.io``, ``geometry``, ``native``, ``data``, ``utils`` and
+``checkpoint``, ``geometry``, ``native``, ``data``, ``utils`` and
 ``cli.evaluate`` are its own copies of the JAX package's jax-free modules,
 and the bundled classifier is read from ``cut_detection_tpu/prod_net/``
 by path.

@@ -1,1 +1,2 @@
-"""Checkpoint conversion for the port (native npz bundles -> state dicts)."""
+"""Checkpoints of the port: the native npz bundles, read and written, and
+their conversion to and from state dicts."""

@@ -1,8 +1,8 @@
-"""The native checkpoint format's reader: a flat ``.npz`` of arrays keyed
-by tree path.
+"""The native checkpoint format: a flat ``.npz`` of arrays keyed by tree
+path.
 
-Copy of ``load_bundle`` and its ``unflatten_tree`` from
-``cut_detection_tpu/checkpoint/io.py:44-82``.  Paths are joined with
+Copy of ``cut_detection_tpu/checkpoint/io.py:22-82`` (``flatten_tree``,
+``unflatten_tree``, ``save_bundle``, ``load_bundle``).  Paths are joined with
 '/'; list indices are decimal segments; an empty dict or list leaf is a
 ``__empty__`` / ``__empty_list__`` marker, so round trips are exact.
 """
@@ -13,6 +13,28 @@ import numpy as np
 
 _EMPTY = "__empty__"
 _EMPTY_LIST = "__empty_list__"
+
+
+def flatten_tree(tree, prefix=""):
+    """Flatten a nest of dict/list/tuple into {path: np.ndarray}."""
+    out = {}
+    if isinstance(tree, dict):
+        if not tree:
+            out[prefix + _EMPTY] = np.zeros((), dtype=np.int8)
+            return out
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        if not tree:
+            # An empty list must survive the round trip too, or the
+            # reloaded tree silently loses the node (KeyError later).
+            out[prefix + _EMPTY_LIST] = np.zeros((), dtype=np.int8)
+            return out
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
 
 
 def unflatten_tree(flat: dict):
@@ -44,9 +66,13 @@ def unflatten_tree(flat: dict):
     return normalize(root)
 
 
+def save_bundle(path: str, tree) -> None:
+    """Save a tree of numpy arrays to ``.npz``."""
+    np.savez(path, **flatten_tree(tree))
+
+
 def load_bundle(path: str):
-    """Load a bundle saved as ``.npz`` by the JAX package's
-    ``save_bundle``."""
+    """Load a bundle saved by ``save_bundle`` (either package's)."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return unflatten_tree(flat)

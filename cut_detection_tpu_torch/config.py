@@ -3,9 +3,10 @@ sidecar (``*_model_params.json``).
 
 Copy of the names the port calls from ``cut_detection_tpu/config.py``
 (``PRECISION_CHOICES`` ``:29``, ``ConvNetConfig`` ``:33``,
-``LinearNetConfig`` ``:48``, ``ModelParams`` ``:67``); the JSON key names
-and their meaning are the reference's (frameID/net.py:195-211), so a
-sidecar written by either package reads the same here.
+``LinearNetConfig`` ``:48``, ``ModelParams`` ``:67``, ``TrainConfig``
+``:129``, ``ContrastiveConfig`` ``:166``); the JSON key names and their
+meaning are the reference's (frameID/net.py:195-211), so a sidecar
+written by either package reads the same here.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ class ConvNetConfig:
     hidden_channels: int = 32
     n_conv_layers: int = 3
     average_pool_size: int = 1
+
+    @property
+    def feature_size(self) -> int:
+        """Flattened feature width after adaptive avg pool (net.py:208)."""
+        return self.hidden_channels * self.average_pool_size ** 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +103,61 @@ class ModelParams:
             hidden_size=self.linear_size,
             output_size=self.linear_output_size,
         )
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Supervised training defaults (supervised_training.py:25-47)."""
+
+    conv_layers: int = 3
+    conv_hidden_channels: int = 48
+    avg_pool_size: int = 4
+    linear_layers: int = 2
+    linear_size: int = 32
+    output_size: int = 3
+    batch_size: int = 128
+    epochs: int = 3
+    write_every_n: int = 1000
+    optimizer: str = "adamw"
+    learning_rate: float = 1e-3       # torch AdamW default lr
+    weight_decay: float = 1e-2        # torch AdamW default
+    data_size: int | None = 150_000
+    model_dir: str = "./models"
+    model_name: str = "init_model"
+    load_conv_net: bool = False
+    valid_fraction: float = 0.25      # the 75/25 split
+    #   (supervised_training.py:72-73)
+    seed: int = 0
+    checkpoint_every_n: int = 0       # 0 = save at the end only (the
+    #   reference's behavior)
+    remat: bool = False               # recompute the conv activations in
+    #   the backward pass, trading FLOPs for memory
+    compute_dtype: str | None = None  # None = full f32; "bfloat16" =
+    #   mixed precision: bf16 activations through conv/FC, with f32
+    #   islands for BN statistics and the loss, and f32 params/grads/
+    #   optimizer state.  The inference-only "bfloat16_full" label is
+    #   rejected for training to keep the mode names distinct.
+
+
+@dataclasses.dataclass
+class ContrastiveConfig:
+    """SimCLR pretraining defaults (learn_contrasts.py:26-42)."""
+
+    conv_layers: int = 3
+    conv_hidden_channels: int = 32
+    linear_layers: int = 3
+    linear_size: int = 32
+    output_size: int = 8
+    batch_size: int = 32
+    epochs: int = 3
+    write_every_n: int = 50
+    optimizer: str = "adamw"
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-2
+    temperature: float = 1.0          # metrics.py:13
+    model_dir: str = "./models"
+    model_name: str = "init_model"
+    seed: int = 0
+    compute_dtype: str | None = None  # None | "bfloat16" (see TrainConfig)
+    fast_augment: bool = False        # composed affine+crop gather
+    #   (documented divergences in train/augment.py)

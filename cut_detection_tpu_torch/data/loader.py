@@ -1,14 +1,69 @@
-"""Threaded prefetch of decoded batches.
+"""Batching and threaded prefetch of decoded batches.
 
-Copy of ``PrefetchLoader`` from ``cut_detection_tpu/data/loader.py:67``:
-one producer thread keeps ``depth`` batches decoded ahead of the device
-loop (cv2 releases the GIL while it decodes).
+Copy of ``_collate``, ``iter_batches`` and ``PrefetchLoader`` from
+``cut_detection_tpu/data/loader.py:19-67``: ``iter_batches`` collates
+dataset items into contiguous uint8 arrays (a thread pool loads them: cv2
+releases the GIL while it decodes), and one producer thread keeps
+``depth`` batches decoded ahead of the device loop.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import queue
 import threading
+
+import numpy as np
+
+
+def _collate(items: list[dict]) -> dict:
+    out = {}
+    for key in items[0]:
+        vals = [it[key] for it in items]
+        first = np.asarray(vals[0])
+        if first.ndim == 0:
+            out[key] = np.asarray(vals)
+        else:
+            out[key] = np.stack(vals)
+    return out
+
+
+def iter_batches(dataset, batch_size: int, *, shuffle: bool = False,
+                 drop_last: bool = False, seed: int | None = None,
+                 indices=None, num_workers: int = 0):
+    """Yield collated dict batches from an indexable dataset.
+
+    ``indices`` restricts/reorders the dataset (torch ``Subset`` analog,
+    supervised_training.py:75-76); ``shuffle`` permutes them with
+    ``np.random.default_rng(seed)``, so a seed gives the JAX package's
+    batch order.
+    """
+    if indices is None:
+        indices = np.arange(len(dataset))
+    else:
+        indices = np.asarray(indices)
+    if shuffle:
+        rng = np.random.default_rng(seed)
+        indices = rng.permutation(indices)
+    n = len(indices)
+
+    def load(i):
+        return dataset[int(i)]
+
+    if num_workers <= 0:
+        for s in range(0, n, batch_size):
+            chunk = indices[s: s + batch_size]
+            if drop_last and len(chunk) < batch_size:
+                break
+            yield _collate([load(i) for i in chunk])
+        return
+
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
+        for s in range(0, n, batch_size):
+            chunk = indices[s: s + batch_size]
+            if drop_last and len(chunk) < batch_size:
+                break
+            yield _collate(list(pool.map(load, chunk)))
 
 
 class PrefetchLoader:

@@ -1,10 +1,13 @@
-"""Model assembly: conv backbone + FC head as one eval-mode module.
+"""Model assembly: conv backbone + FC head as one module.
 
 Counterpart of ``cut_detection_tpu/models/assembly.py`` (``GluedNet``
 ``:38-137``, ``fold_preprocess`` ``:140-157``, ``folded_input``
 ``:160-170``, ``precompute_rings`` ``:173-240``, the loaders ``:243-285,
 307-327``); reference frameID/net.py:193-233.  Every precision rung is
-ported (``PORTED_PRECISIONS``).
+ported (``PORTED_PRECISIONS``).  A ``GluedNet`` is built for inference;
+the training loops (``train/``) initialise one with ``init_weights``,
+switch it to ``.train()`` and apply its recorded BN statistics after each
+backward (``apply_bn_stats``).
 """
 
 from __future__ import annotations
@@ -15,8 +18,11 @@ import os
 import torch
 from torch import nn
 
-from cut_detection_tpu_torch.checkpoint.convert import params_from_jax
-from cut_detection_tpu_torch.checkpoint.io import load_bundle
+from cut_detection_tpu_torch.checkpoint.convert import (
+    bundle_from_state_dict,
+    params_from_jax,
+)
+from cut_detection_tpu_torch.checkpoint.io import load_bundle, save_bundle
 from cut_detection_tpu_torch.config import ModelParams
 from cut_detection_tpu_torch.models.frame_conv import (
     CHAIN_RUNGS,
@@ -89,6 +95,38 @@ class GluedNet(nn.Module):
     def num_params(self) -> int:
         """Trainable parameter count (BN running stats excluded)."""
         return sum(p.numel() for p in self.parameters())
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's initial values (``init_frame_conv``,
+        ``init_frame_linear``), drawn from ``generator``, a CPU
+        ``torch.Generator``, block by block: U(+-1/sqrt(fan_in)) weights
+        and biases, BN gamma 1, beta 0, mean 0, var 1.  The draws are not
+        JAX's: its keys make another stream."""
+        for block in (*self.conv.conv_layers, *self.linear.layers):
+            block.init_weights(generator)
+
+    @torch.no_grad()
+    def apply_bn_stats(self) -> None:
+        """Write the BN running statistics that the last train forward
+        recorded (``bn_stats``) into the blocks, once, and clear them.
+        A training step calls it after its backward, so a rematerialized
+        forward, which records the same values again, moves them once."""
+        for net, blocks in ((self.conv, self.conv.conv_layers),
+                            (self.linear, self.linear.layers)):
+            for i, (mean, var) in net.bn_stats.items():
+                blocks[i].bn.running_mean.copy_(mean)
+                blocks[i].bn.running_var.copy_(var)
+            net.bn_stats.clear()
+
+    def bundle(self) -> dict:
+        """The weights as a native numpy bundle (``checkpoint.convert.
+        bundle_from_state_dict``)."""
+        return bundle_from_state_dict(self.state_dict())
+
+    def save(self, path: str) -> None:
+        """Save the weights as one ``.npz`` bundle, as the JAX
+        ``GluedNet.save`` does (``assembly.py:116-118``)."""
+        save_bundle(path, self.bundle())
 
     def __repr__(self) -> str:
         mp = self.model_params

@@ -1,4 +1,4 @@
-"""FrameConvNet / FrameLinearNet, eval mode.
+"""FrameConvNet / FrameLinearNet.
 
 Counterpart of ``cut_detection_tpu/models/frame_conv.py:44-126`` (the
 dense path ``:82-100`` and the ``uint8_chain`` / ``int8_mxu`` path
@@ -9,6 +9,12 @@ codes with a pending affine at ``"uint8_chain"`` (uint8) and
 pool; the adaptive pool reads them as f32, as JAX's type promotion
 does.  At ``"bfloat16_full"`` the last block hands the pool its
 BN sum in f32 (``ConvBlock.feeds_head``), as the compiled JAX step does.
+
+In train mode (``.train()``) each net runs its blocks' ``forward_train``
+and records their new BN running statistics in ``bn_stats``, keyed by
+block index, for ``GluedNet.apply_bn_stats``: a forward run twice on
+the same input (rematerialized) records the same values, and the
+statistics move once a step.
 
 - ``FrameConvNet``: N conv blocks (in_ch -> hidden, then hidden ->
   hidden), adaptive average pooling, and a flatten in NCHW order so the
@@ -47,12 +53,18 @@ class FrameConvNet(nn.Module):
             ConvBlock(i, o, compute_dtype, feeds_head=k == last)
             for k, (i, o) in enumerate(zip(chans[:-1], chans[1:])))
         self.compute_dtype = compute_dtype
+        self.bn_stats: dict[int, tuple] = {}
 
     def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:
         """``rings``: the ``uint8_chain`` or ``int8_mxu`` blocks' constant
         terms from ``assembly.precompute_rings`` of this net; without them
         each block computes its own.  Rings of another net raise."""
-        if self.compute_dtype in CHAIN_RUNGS:
+        if self.training:
+            if rings is not None:
+                raise ValueError("rings are for the eval forward")
+            for i, layer in enumerate(self.conv_layers):
+                x, self.bn_stats[i] = layer.forward_train(x)
+        elif self.compute_dtype in CHAIN_RUNGS:
             if rings is None:
                 rings = [None] * len(self.conv_layers)
             elif getattr(rings, "source", None) is not self:
@@ -88,8 +100,14 @@ class FrameLinearNet(nn.Module):
         self.layers = nn.ModuleList(
             FCBlock(i, o, hidden=k != last, compute_dtype=compute_dtype)
             for k, (i, o) in enumerate(sizes))
+        self.bn_stats: dict[int, tuple] = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x)
+        for i, layer in enumerate(self.layers):
+            if self.training:
+                x, stats = layer.forward_train(x)
+                if stats is not None:  # the last layer has no BN
+                    self.bn_stats[i] = stats
+            else:
+                x = layer(x)
         return x

@@ -1,6 +1,6 @@
-"""Building-block layers: the CNN block and the FC block, eval mode.
+"""Building-block layers: the CNN block and the FC block.
 
-Counterpart of ``cut_detection_tpu/models/layers.py:77-226, 302-323``.
+Counterpart of ``cut_detection_tpu/models/layers.py:55-226, 283-323``.
 Reference order (frameID/net.py:33-40, 62-68):
 
 - ``ConvBlock``: conv3x3 (pad 1) -> ReLU -> maxpool 3/3 -> BatchNorm2d;
@@ -11,6 +11,16 @@ Parameters sit in ``nn.Conv2d`` / ``nn.Linear`` / ``nn.BatchNorm*``
 holders so the state dict has the reference's own keys; the forward
 passes never call those modules — the conv block runs one fused kernel.
 Activations are NHWC, as in the JAX package.
+
+Each block also has a train forward, ``forward_train``: differentiable
+PyTorch ops (``ops.nn.conv2d_same``, ``max_pool``, ``batch_norm_train``)
+that return the activation and the block's new BN running statistics,
+which the caller applies (``GluedNet.apply_bn_stats``); ``init_weights``
+draws the JAX package's initial values from a ``torch.Generator``.  The
+train forward runs at float32 (``compute_dtype=None``) or at
+``"bfloat16_full"``, the per-op bf16 contract that JAX's mixed-precision
+training runs (``cut_detection_tpu/train/supervised.py:39-60``): bf16
+activations, with BN statistics in f32.
 
 ``compute_dtype`` is the net's precision rung, as in the JAX blocks:
 ``None`` (float32), ``"bfloat16"`` (bf16 operands, f32 activations),
@@ -53,6 +63,7 @@ from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
 from cut_detection_tpu_torch.ops.nn import (
     BN_EPS,
     batch_norm_infer,
+    batch_norm_train,
     bf16_round,
     bn_scale_offset,
     conv2d_same,
@@ -64,6 +75,34 @@ from cut_detection_tpu_torch.ops.nn import (
 # The reference's max-pool window and stride (frameID/net.py:90-120); the
 # ring walk of assembly.precompute_rings steps the shapes with it.
 POOL_WINDOW = 3
+# The compute dtypes of the train forward: float32, and the bf16 mixed
+# precision that TrainConfig(compute_dtype="bfloat16") selects.
+TRAIN_DTYPES = (None, "bfloat16_full")
+
+
+@torch.no_grad()
+def _init_uniform(t: torch.Tensor, fan_in: int, generator) -> None:
+    """U(+-1/sqrt(fan_in)) from ``generator`` (a CPU ``torch.Generator``),
+    torch's default Conv2d / Linear bound for weights and biases and the
+    JAX package's (``layers.py:55-75, 283-300``)."""
+    bound = (1.0 / fan_in) ** 0.5
+    t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
+
+
+@torch.no_grad()
+def _init_bn(bn) -> None:
+    """gamma 1, beta 0, running mean 0 and variance 1."""
+    bn.weight.fill_(1.0)
+    bn.bias.zero_()
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0)
+    bn.num_batches_tracked.zero_()
+
+
+def _check_train_dtype(compute_dtype) -> None:
+    if compute_dtype not in TRAIN_DTYPES:
+        raise ValueError(f"a block trains at float32 or bfloat16_full, not "
+                         f"{compute_dtype!r}")
 
 
 def conv_quantize_scale(mean, var):
@@ -289,6 +328,31 @@ class ConvBlock(nn.Module):
         self._i8_frozen = {}
         self._frozen = self.kernel_args()
 
+    def init_weights(self, generator) -> None:
+        """The JAX package's initial values (``init_conv_block``), drawn
+        from ``generator``: the kernel, then the bias."""
+        fan_in = self.conv.in_channels * 9
+        _init_uniform(self.conv.weight, fan_in, generator)
+        _init_uniform(self.conv.bias, fan_in, generator)
+        _init_bn(self.bn)
+
+    def forward_train(self, x: torch.Tensor):
+        """conv -> ReLU -> maxpool 3/3 -> train BN, differentiable
+        (``apply_conv_block(train=True)``).  Returns ``(y, (new running
+        mean, new running var))``; the statistics are not written.  A
+        frozen block is an inference copy and refuses."""
+        if self._frozen is not None:
+            raise RuntimeError("this block was frozen for inference "
+                               "(freeze()); train an unfrozen copy")
+        _check_train_dtype(self.compute_dtype)
+        z = conv2d_same(x, self.hwio(), self.conv.bias,
+                        compute_dtype=self.compute_dtype)
+        z = max_pool(torch.relu(z), POOL_WINDOW)
+        bn = self.bn
+        y, mean, var = batch_norm_train(z, bn.running_mean, bn.running_var,
+                                        bn.weight, bn.bias)
+        return y, (mean, var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype == "uint8_pool":
             return self._forward_u8_pool(x)
@@ -318,6 +382,29 @@ class FCBlock(nn.Module):
         self.linear = nn.Linear(in_f, out_f)
         self.bn = nn.BatchNorm1d(out_f, eps=BN_EPS) if hidden else None
         self.compute_dtype = compute_dtype
+
+    def init_weights(self, generator) -> None:
+        """The JAX package's initial values (``init_fc_block``), drawn
+        from ``generator``: the weight, then the bias."""
+        fan_in = self.linear.in_features
+        _init_uniform(self.linear.weight, fan_in, generator)
+        _init_uniform(self.linear.bias, fan_in, generator)
+        if self.bn is not None:
+            _init_bn(self.bn)
+
+    def forward_train(self, x: torch.Tensor):
+        """Hidden: linear -> ReLU -> train BN; final: linear alone
+        (``apply_fc_block(train=True)``).  Returns ``(y, (new running
+        mean, new running var))``, or ``(y, None)`` without BN."""
+        _check_train_dtype(self.compute_dtype)
+        x = linear(x, self.linear.weight.t(), self.linear.bias,
+                   compute_dtype=self.compute_dtype)
+        if self.bn is None:
+            return x, None
+        bn = self.bn
+        y, mean, var = batch_norm_train(torch.relu(x), bn.running_mean,
+                                        bn.running_var, bn.weight, bn.bias)
+        return y, (mean, var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = linear(x, self.linear.weight.t(), self.linear.bias,

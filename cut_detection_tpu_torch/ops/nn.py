@@ -29,6 +29,8 @@ import torch.nn.functional as F
 
 # torch BatchNorm default eps (both 1d and 2d variants).
 BN_EPS = 1e-5
+# torch BatchNorm default momentum for running-statistic updates.
+BN_MOMENTUM = 0.1
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -92,9 +94,12 @@ def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
 def _pool_matrix_on(in_size: int, out_size: int,
                     device: torch.device) -> torch.Tensor:
     # Cached per device: a fresh host->device copy per batch would
-    # synchronise the stream every step.
-    return torch.tensor(_adaptive_pool_matrix(in_size, out_size),
-                        device=device)
+    # synchronise the stream every step.  Made outside inference mode even
+    # when first asked for inside it (the classify step), so that a
+    # training step in the same process may save it for its backward.
+    with torch.inference_mode(False):
+        return torch.tensor(_adaptive_pool_matrix(in_size, out_size),
+                            device=device)
 
 
 def adaptive_avg_pool(x, out_size: int):
@@ -136,6 +141,38 @@ def batch_norm_infer(x, mean, var, gamma, beta, eps: float = BN_EPS):
     ``[B, F]``)."""
     s, t = bn_scale_offset(mean, var, gamma, beta, eps)
     return bn_affine(x, s, t)
+
+
+def batch_norm_train(x, mean_running, var_running, gamma, beta,
+                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
+    """Train-mode batch norm (``cut_detection_tpu/ops/nn.py:217-245``);
+    returns ``(y, new_running_mean, new_running_var)`` and writes nothing
+    in place.
+
+    torch's semantics: the normalization uses the biased batch variance
+    ``mean((x - mean)^2)``; the running variance takes the
+    Bessel-corrected one (``count / max(count - 1, 1)``), with ``running
+    = (1 - momentum) * running + momentum * batch``.  The statistics
+    reduce every dim but the last (NHWC and ``[B, F]``) and run in f32,
+    the output cast back to ``x``'s dtype: the f32 island of bf16
+    training.  Written out rather than ``F.batch_norm``: torch's module
+    refuses a batch of one row (the FC head's tail batch), and cuDNN's
+    kernel sums in an order of its own.  The new statistics carry no
+    gradient.
+    """
+    dims = tuple(range(x.dim() - 1))
+    count = x.numel() // x.shape[-1]
+    xf = x.float()
+    batch_mean = xf.mean(dim=dims)
+    batch_var = (xf - batch_mean).square().mean(dim=dims)  # biased
+    y = (xf - batch_mean) * torch.rsqrt(batch_var + eps) \
+        * gamma.float() + beta.float()
+    correction = count / max(count - 1, 1)
+    with torch.no_grad():
+        new_mean = (1 - momentum) * mean_running + momentum * batch_mean
+        new_var = ((1 - momentum) * var_running
+                   + momentum * batch_var * correction)
+    return y.to(x.dtype), new_mean, new_var
 
 
 def linear(x, weight, bias=None, *, compute_dtype=None):

@@ -14,6 +14,14 @@ import torch
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
 
 
+def to_unit(frames_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 in [0, 1], ``x / 255`` as one IEEE division on
+    every device (as ``x.astype(f32) / 255.0`` in the JAX package): CUDA
+    divides by a Python scalar as a product with its reciprocal."""
+    return frames_u8.float() / torch.tensor(255.0,
+                                            device=frames_u8.device)
+
+
 def normalize_frames(frames_u8_bgr: torch.Tensor) -> torch.Tensor:
     """uint8 BGR NHWC -> float32 RGB NHWC in [0, 1]: the reference's
     ``torch.flip(t.permute(2,0,1), (0,)) / 255`` in NHWC."""

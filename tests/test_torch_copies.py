@@ -3,16 +3,20 @@ to its original on the same input.
 
 The port imports nothing of ``cut_detection_tpu`` (``test_torch_imports``
 checks that), so it keeps copies, under the same relative paths, of what
-it calls: ``config``, ``checkpoint.io``, ``geometry`` (held by
+it calls: ``config`` (with ``TrainConfig`` and ``ContrastiveConfig``),
+``checkpoint.io`` (the reader and the writer), ``checkpoint.convert``'s
+``export_torch_state_dicts``, ``geometry`` (held by
 ``tests/test_torch_preprocess.py``), ``utils.logging``,
 ``utils.profiling``, ``native``, ``data.video`` (with the yuv backend of
 ``ParallelVideoReader``), ``data.native_video`` (``NativeVideoSource``,
-``NativeYUVSource``, ``yuv420_to_bgr24_host``), ``data.loader``,
+``NativeYUVSource``, ``yuv420_to_bgr24_host``), ``data.frames``,
+``data.loader`` (``_collate``, ``iter_batches``, ``PrefetchLoader``),
 ``data.shm_loader`` (both transfers), ``cli.evaluate`` and
 ``ops.kernels.conv1_stages._strip_rows_for``.  The prod
 classifier's files are read by path from the JAX package's directory.
 """
 
+import dataclasses
 import logging
 import os
 import subprocess
@@ -25,8 +29,10 @@ import pytest
 import cut_detection_tpu
 from cut_detection_tpu import config as jax_config
 from cut_detection_tpu import native as jax_native
+from cut_detection_tpu.checkpoint import convert as jax_convert
 from cut_detection_tpu.checkpoint import io as jax_io
 from cut_detection_tpu.cli import evaluate as jax_evaluate
+from cut_detection_tpu.data import frames as jax_frames
 from cut_detection_tpu.data import loader as jax_loader
 from cut_detection_tpu.data import native_video as jax_native_video
 from cut_detection_tpu.data import shm_loader as jax_shm
@@ -34,9 +40,15 @@ from cut_detection_tpu.data import video as jax_video
 from cut_detection_tpu.utils import logging as jax_logging
 from cut_detection_tpu.utils import profiling as jax_profiling
 from cut_detection_tpu_torch import config, native
-from cut_detection_tpu_torch.checkpoint import io
+from cut_detection_tpu_torch.checkpoint import convert, io
 from cut_detection_tpu_torch.cli import evaluate
-from cut_detection_tpu_torch.data import loader, native_video, shm_loader, video
+from cut_detection_tpu_torch.data import (
+    frames,
+    loader,
+    native_video,
+    shm_loader,
+    video,
+)
 from cut_detection_tpu_torch.models import assembly
 from cut_detection_tpu_torch.utils import logging as port_logging
 from cut_detection_tpu_torch.utils import profiling
@@ -82,6 +94,16 @@ def test_config_matches():
         theirs.linear_config().layer_sizes()
 
 
+@pytest.mark.parametrize("name", ["TrainConfig", "ContrastiveConfig"])
+def test_train_configs_match(name):
+    ours, theirs = getattr(config, name), getattr(jax_config, name)
+    assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
+        [(f.name, f.default) for f in dataclasses.fields(theirs)]
+    cfg = config.ConvNetConfig(hidden_channels=48, average_pool_size=4)
+    assert cfg.feature_size == jax_config.ConvNetConfig(
+        hidden_channels=48, average_pool_size=4).feature_size == 768
+
+
 def test_prod_net_is_read_in_place():
     """The port reads the prod classifier from the JAX package's
     directory by path, not from a copy of its own."""
@@ -104,6 +126,107 @@ def test_load_bundle_matches(tmp_path):
             np.testing.assert_array_equal(fo[k], ft[k])
     assert io.load_bundle(path)["b"] == []
     assert io.load_bundle(path)["a"][1] == {}
+
+
+def test_flatten_and_save_bundle_match(tmp_path):
+    """``flatten_tree`` on a tree with every marker, and a bundle written
+    by each package's ``save_bundle`` read by the other's
+    ``load_bundle``."""
+    tree = {"a": [np.arange(3), {}], "b": [], "c": {"d": np.ones((2, 2))},
+            "e": (np.float32(2.5),)}
+    ours, theirs = io.flatten_tree(tree), jax_io.flatten_tree(tree)
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], theirs[k])
+    io.save_bundle(str(tmp_path / "ours.npz"), tree)
+    jax_io.save_bundle(str(tmp_path / "theirs.npz"), tree)
+    for path in ("ours.npz", "theirs.npz"):
+        for reader in (io.load_bundle, jax_io.load_bundle):
+            got = jax_io.flatten_tree(reader(str(tmp_path / path)))
+            assert got.keys() == theirs.keys()
+            for k in got:
+                np.testing.assert_array_equal(got[k], theirs[k])
+
+
+def test_export_torch_state_dicts_matches():
+    """The prod bundle through each package's export: the same keys,
+    dtypes and values; and the port's state dict back to the bundle
+    (``bundle_from_state_dict``, the inverse of ``params_from_jax``)."""
+    import torch
+
+    prod = io.load_bundle(os.path.join(os.path.dirname(PROD_JSON),
+                                       "init_model.npz"))
+    for ours, theirs in zip(convert.export_torch_state_dicts(prod),
+                            jax_convert.export_torch_state_dicts(prod)):
+        assert list(ours) == list(theirs)
+        for k in theirs:
+            assert ours[k].dtype == theirs[k].dtype, k
+            torch.testing.assert_close(ours[k], theirs[k], rtol=0, atol=0)
+    back = convert.bundle_from_state_dict(convert.params_from_jax(prod))
+    fo, fp = jax_io.flatten_tree(back), jax_io.flatten_tree(prod)
+    assert fo.keys() == fp.keys()
+    for k in fp:
+        assert fo[k].dtype == fp[k].dtype, k
+        np.testing.assert_array_equal(fo[k], fp[k])
+
+
+def test_frame_datasets_match(tmp_path):
+    """``SupervisedFrameDataset`` (labels from the CSV's range starts),
+    ``ContrastiveFrameDataset`` (recursive, sorted, capped by ``size``)
+    and ``ConcatDataset`` over the same JPEG tree."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    sub = tmp_path / "sub"
+    sub.mkdir()
+    for i in range(7):
+        d = sub if i % 2 else tmp_path
+        cv2.imwrite(str(d / f"frame_{i:07d}.jpg"),
+                    rng.integers(0, 256, (12, 20, 3), dtype=np.uint8))
+    (tmp_path / "frames.csv").write_text("0,a22\n3,ez\n5,b\n")
+    for size in (None, 4):
+        pairs = [
+            (frames.SupervisedFrameDataset(str(tmp_path), "frames.csv",
+                                           size=size),
+             jax_frames.SupervisedFrameDataset(str(tmp_path), "frames.csv",
+                                               size=size)),
+            (frames.ContrastiveFrameDataset(str(tmp_path), size=size),
+             jax_frames.ContrastiveFrameDataset(str(tmp_path), size=size)),
+        ]
+        pairs.append((frames.ConcatDataset([pairs[0][0], pairs[1][0]]),
+                      jax_frames.ConcatDataset([pairs[0][1], pairs[1][1]])))
+        for ours, theirs in pairs:
+            assert len(ours) == len(theirs)
+            for i in range(len(theirs)):
+                a, b = ours[i], theirs[i]
+                assert a.keys() == b.keys()
+                for k in b:
+                    np.testing.assert_array_equal(a[k], b[k])
+    labels = [frames.SupervisedFrameDataset(str(tmp_path), "frames.csv")[i]
+              ["y"] for i in range(7)]
+    assert labels == [0, 0, 0, 1, 1, 2, 2]
+    with pytest.raises(ValueError):
+        frames.ContrastiveFrameDataset(str(tmp_path), ext=".txt")
+
+
+@pytest.mark.parametrize("shuffle,drop_last,workers",
+                         [(False, False, 0), (True, False, 0),
+                          (True, True, 2)])
+def test_iter_batches_matches(shuffle, drop_last, workers):
+    """Same seed, same split indices: the same batches, in the same
+    order, through ``_collate`` (scalar items stacked as vectors)."""
+    items = [{"x": np.full((2, 3), i, np.uint8), "y": np.int64(i % 3)}
+             for i in range(23)]
+    idx = np.random.default_rng(1).permutation(23)[:17]
+    kw = dict(shuffle=shuffle, drop_last=drop_last, seed=5, indices=idx)
+    ours = list(loader.iter_batches(items, 4, num_workers=workers, **kw))
+    theirs = list(jax_loader.iter_batches(items, 4, **kw))
+    assert len(ours) == len(theirs) == (4 if drop_last else 5)
+    for a, b in zip(ours, theirs):
+        assert a.keys() == b.keys()
+        for k in b:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_logging_and_meter_match():

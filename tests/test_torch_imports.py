@@ -162,3 +162,52 @@ def test_int8_device_glue_and_profile_run_without_jax(tmp_path):
             REPO, "tests", "golden", "ref_segments.csv"), "rb") as g:
         assert f.read() == g.read()
     assert [n for n in os.listdir(trace) if n.endswith(".json")]
+
+
+def test_training_clis_run_without_jax(tmp_path):
+    """Contrastive pretraining (the fast views), then supervised training
+    warm-started from it with ``--export-torch``, and the triplet driving
+    the classify step, with jax and the JAX package blocked."""
+    import cv2
+    import numpy as np
+
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        cv2.imwrite(str(frames / f"frame_{i:07d}.jpg"),
+                    rng.integers(0, 256, (36, 64, 3), dtype=np.uint8))
+    (frames / "frames.csv").write_text("0,a22\n4,ez\n8,b\n")
+    models = str(tmp_path / "models")
+    net = ["--conv-layers", "2", "--conv-hidden-channels", "8",
+           "--linear-layers", "2", "--linear-size", "8", "--epochs", "1",
+           "--num-workers", "0", "--model-dir", models, "--cpu"]
+    proc = _run(f"""
+        import torch
+        from cut_detection_tpu_torch.cli import (
+            train_contrastive, train_supervised)
+        from cut_detection_tpu_torch.models.assembly import (
+            load_triplet_or_default)
+        from cut_detection_tpu_torch.pipeline import make_classify_step
+        net = {net!r}
+        train_contrastive.main(["--data-dir", {str(frames)!r},
+                                "--output-size", "4", "--batch-size", "4",
+                                "--fast-augment"] + net)
+        train_supervised.main(["--data-dirs", {str(frames)!r},
+                               "--avg-pool-size", "2", "--batch-size", "4",
+                               "--load-conv-net", "--export-torch"] + net)
+        model, _ = load_triplet_or_default({models!r}, "init_model", "cpu")
+        conf, pred = make_classify_step(model)(
+            torch.zeros(3, 36, 64, 3, dtype=torch.uint8))
+        assert conf.shape == (3,) and pred.shape == (3,)
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert sorted(os.listdir(models)) == [
+        "init_model_classifier_conv.npz", "init_model_classifier_conv.pt",
+        "init_model_classifier_linear.npz",
+        "init_model_classifier_linear.pt", "init_model_conv.npz",
+        "init_model_embed_params.json", "init_model_linear.npz",
+        "init_model_model_params.json", "train_state_0000.npz",
+        "train_state_meta.json"]
