@@ -154,6 +154,24 @@ Phases, each of which raises on failure:
              validation passes' launches, and the trained triplet through
              the classify step on the card and the CPU (every class
              predicted, the same classes).
+12. tools  — the tool entry points as a user runs them: ``doctor --full
+             --json`` in a subprocess (healthy; its ``kernels-build`` and
+             ``classify-step`` checks passed, the step launching
+             ``conv1_block[f32]`` once and ``conv_block[f32]`` twice);
+             ``embed_frames`` on the train phase's JPEG tree and
+             contrastive pair at ``--frame-limit 1024`` (embeddings within
+             1e-4 of a ``--cpu`` run on the first 256, ``conv_block[f32]``
+             launched conv layers x batches times, frames/s);
+             ``export_model --use-default-net`` at batch 128 at every
+             rung whose net launches kernels (each reloaded
+             ``torch.export`` program on the card, aten ops only, within
+             the rung's ``EXPORT_TOL`` of the net at that rung; float32
+             also within 1e-4; the ``--format torch`` state dicts equal to
+             the bundle's); ``bench_pipeline`` at its defaults on a seeded
+             2,000-frame 1280x720 clip written here, all three stages at
+             float32 (cv2 decode, sequential and parallel; the resident
+             loop; end to end); ``split_video`` on the golden clip, the
+             same JPEG bytes at ``--decode-workers`` 1 and 4.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -1697,9 +1715,15 @@ VIEW_TOL = 1e-5              # views: all but 0.1% of the pixels
 # The training CLIs' frame tree: 144x256 JPEGs in labelled segments of one
 # colour each (BGR, plus noise), cycling A22 / EZ / blank.
 TREE_FRAMES = 4096
+EMBED_FRAMES = 1024  # the tools phase's embed_frames on the tree
+EMBED_CHECK = 256    # of them held against a --cpu run
 TREE_SEGMENT = 128
 TREE_COLOURS = {"a22": (40, 120, 40), "ez": (60, 60, 150), "b": (10, 10, 10)}
 TREE_MIN_ACC = 0.9           # the trained triplet on the tree's frames
+# The tools phase's bench_pipeline clip (write_game_clip): a game's frame
+# size, as many frames as the CLI's default --frame-limit.
+GAME_FRAMES = 2000
+GAME_HW = (720, 1280)
 
 
 def _rel(a, b) -> float:
@@ -1879,6 +1903,41 @@ def write_frame_tree(path: str, n: int, seed: int = 5) -> None:
                     img.astype(np.uint8))
     with open(os.path.join(path, "frames.csv"), "w") as f:
         f.write("\n".join(rows) + "\n")
+
+
+def write_game_clip(path: str, n: int = GAME_FRAMES, seed: int = 7) -> None:
+    """``n`` seeded ``GAME_HW`` frames at 30 fps under ``path`` (mp4v), in
+    segments of 60-240 frames, cycling A22 / EZ / blank: each segment a
+    camera pan, 2 pixels a frame, across a field of its class colour
+    (``TREE_COLOURS``) with a texture (noise of amplitude 16 drawn at an
+    eighth of the size and scaled up), plus noise of amplitude 4 a pixel
+    from 16 frames in turn.  The encoder finds the pan's motion, as it
+    does in game film, and writes about 5 KB a frame."""
+    from cut_detection_tpu_torch.data.frames import cv2
+
+    h, w = GAME_HW
+    span = w + 2 * 240  # the longest segment's pan
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 16, (h // 8, span // 8, 3), dtype=np.uint8)
+    texture = cv2.resize(coarse, (span, h), interpolation=cv2.INTER_LINEAR)
+    fields = [cv2.add(np.full((h, span, 3), c, np.uint8), texture)
+              for c in TREE_COLOURS.values()]
+    noise = rng.integers(0, 4, (16, h, w, 3), dtype=np.uint8)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    try:
+        i = k = 0
+        while i < n:
+            seg = min(int(rng.integers(60, 241)), n - i)
+            for j in range(seg):
+                x = 2 * j
+                writer.write(cv2.add(fields[k % 3][:, x:x + w],
+                                     noise[(i + j) % 16]))
+            i, k = i + seg, k + 1
+    finally:
+        writer.release()
 
 
 def train_cli_run(dev, card, workdir) -> str:
@@ -2061,6 +2120,258 @@ def phase_train(dev, card, workdir):
         out["fast" if fast else "exact"] = train_contrastive_run(
             dev, card, cfg, src)
     train_cli_run(dev, card, workdir)
+    return out
+
+
+def start_doctor(card):
+    """Start ``doctor --full --json`` in a subprocess, as a supervisor runs
+    it.  Returns a function that waits for it and checks it: healthy, its
+    kernel build and classify step passed, and the step launched
+    ``conv1_block[f32]`` once and ``conv_block[f32]`` twice."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cut_detection_tpu_torch.cli.doctor",
+         "--full", "--json"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def finish() -> dict:
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        wall = time.perf_counter() - t0
+        lines = stdout.strip().splitlines()
+        report = json.loads(lines[-1]) if lines else {}
+        checks = {c["check"]: c for c in report.get("checks", [])}
+        log(f"tools: doctor --full --json exit {proc.returncode} in "
+            f"{wall:.1f} s: " + "; ".join(
+                f"{n} {'ok' if c['ok'] else 'FAIL'} {c['seconds']} s "
+                f"{c['detail'] or c['error']}"
+                for n, c in checks.items()) + f" [{card}]")
+        step = checks.get("classify-step", {})
+        if not (proc.returncode == 0 and report.get("healthy") is True
+                and checks.get("kernels-build", {}).get("ok")
+                and step.get("ok") and step["detail"]["launches"] == {
+                    "conv1_block[f32]": 1, "conv_block[f32]": 2}):
+            raise AssertionError(f"tools: doctor unhealthy or off its "
+                                 f"path:\n{stdout}\n{stderr[-4000:]}")
+        return {"wall_s": wall}
+
+    return finish
+
+
+def tools_embed(dev, card, workdir) -> dict:
+    """``embed_frames`` on the train phase's JPEG tree and contrastive
+    pair, ``--frame-limit EMBED_FRAMES`` on the card and its first
+    ``EMBED_CHECK`` frames with ``--cpu``: embeddings within ``CONF_TOL``,
+    ``conv_block[f32]`` launched once per conv layer and batch (float
+    frames: layer 1 too) and no other kernel; frames/s of the CLI."""
+    from cut_detection_tpu_torch.cli import embed_frames
+    from cut_detection_tpu_torch.config import ModelParams
+
+    tree = os.path.join(workdir, "tree")
+    models = os.path.join(workdir, "tree_models")
+    mp = ModelParams.from_json(os.path.join(models,
+                                            "smoke_embed_params.json"))
+    common = [tree, "--model-dir", models, "--model-name", "smoke"]
+    card_out = os.path.join(workdir, "embed_card.npz")
+    cpu_out = os.path.join(workdir, "embed_cpu.npz")
+    zero_launches()
+    t0 = time.perf_counter()
+    embed_frames.main([*common, "--frame-limit", str(EMBED_FRAMES),
+                       "--output", card_out])
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    batches = -(-EMBED_FRAMES // 256)  # the CLI's default batch
+    check_launches("tools: embed_frames", got,
+                   {**dict.fromkeys(got, 0),
+                    "conv_block[f32]": mp.conv_layers * batches})
+    embed_frames.main([*common, "--frame-limit", str(EMBED_CHECK),
+                       "--output", cpu_out, "--cpu"])
+    on_card = np.load(card_out)["embeddings"]
+    on_cpu = np.load(cpu_out)["embeddings"]
+    err = float(np.abs(on_card[:EMBED_CHECK] - on_cpu).max())
+    fps = EMBED_FRAMES / wall
+    log(f"tools: embed_frames --frame-limit {EMBED_FRAMES} on the tree "
+        f"(conv {mp.conv_layers}x{mp.conv_channels}ch, pool "
+        f"{mp.avg_pool_size}, FC {mp.linear_layers}x{mp.linear_size}->"
+        f"{mp.linear_output_size}): {on_card.shape} in {wall:.2f} s, "
+        f"{fps:.1f} frames/s with start-up and JPEG decode; launches "
+        f"{ {k: v for k, v in got.items() if v} }; card vs --cpu on "
+        f"{EMBED_CHECK} frames {err:.3e} (tol {CONF_TOL:.0e}) [{card}]")
+    if not (on_card.shape == (EMBED_FRAMES, mp.linear_output_size)
+            and np.isfinite(on_card).all() and err <= CONF_TOL):
+        raise AssertionError("tools: embed_frames card vs CPU")
+    return {"fps": fps, "wall_s": wall}
+
+
+# The rungs whose nets launch kernels.  At uint8_pool and uint8_chain the
+# blocks are plain PyTorch, so the exported program runs the net's own
+# ops on any device; tests/test_torch_embed_export.py holds them.
+EXPORT_RUNGS = ("float32", "bfloat16", "bfloat16_full", "int8_mxu")
+
+
+def tools_export(dev, card, workdir) -> dict:
+    """``export_model --use-default-net`` at batch 128 at each of
+    ``EXPORT_RUNGS``: ``export`` (the CLI's own check, then here: the
+    reloaded program on the card, aten ops only, within the rung's
+    ``EXPORT_TOL`` of the logits of the net at that rung on the CLI's
+    example, the net launching its kernels; at float32 also within
+    ``F32_TOL``, ``conv_block[f32]`` three times) and, at float32,
+    ``torch`` (the ``.pt`` state dicts equal to the bundle's tensors).
+    Returns each rung's reading and wall time."""
+    from cut_detection_tpu_torch.cli import export_model
+    from cut_detection_tpu_torch.models.assembly import (
+        _PROD_NET_DIR,
+        load_and_glue_nets,
+        load_default_net,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (BATCH, *MODEL_HW, 3), dtype=np.float32)).to(dev)
+    readings = {}
+    for precision in EXPORT_RUNGS:
+        out = os.path.join(workdir, f"prod_{precision}.pt2")
+        t0 = time.perf_counter()
+        export_model.main(["--use-default-net", "--batch-size", str(BATCH),
+                           "--precision", precision, "--output", out])
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(out)
+        program = torch.export.load(out)
+        os.remove(out)
+        ops = {str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"}
+        net, _ = load_default_net(dev, precision)
+        zero_launches()
+        with torch.inference_mode():
+            want = net(x).cpu().numpy()
+        launched = {k: v for k, v in read_launches().items() if v}
+        with torch.inference_mode():
+            got = program.module()(x).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        bar = export_model.EXPORT_TOL[precision]
+        log(f"tools: export_model --use-default-net --batch-size {BATCH} "
+            f"--precision {precision}: {size:,} B in {wall:.2f} s, "
+            f"{len(ops)} aten ops; program on the card vs the net "
+            f"{err:.3e} (bar {bar:.0e}; the net's launches {launched}) "
+            f"[{card}]")
+        if not (ops and all(op.startswith("aten.") for op in ops)
+                and err <= bar and np.isfinite(got).all() and launched):
+            raise AssertionError(f"tools: export_model at {precision}")
+        if precision == "float32" and not (
+                err <= F32_TOL and launched == {"conv_block[f32]": 3}):
+            raise AssertionError("tools: export_model at float32")
+        readings[precision] = {"max_abs_err": err, "bar": bar,
+                               "wall_s": wall}
+    pt_dir = export_model.main(["--use-default-net", "--format", "torch",
+                                "--output", os.path.join(workdir, "pt")])
+    pt, _ = load_and_glue_nets(
+        os.path.join(_PROD_NET_DIR, "init_model_model_params.json"),
+        os.path.join(pt_dir, "classifier_conv.pt"),
+        os.path.join(pt_dir, "classifier_linear.pt"), torch.device("cpu"))
+    ref = load_default_net(torch.device("cpu"))[0].state_dict()
+    sd = pt.state_dict()
+    same = sd.keys() == ref.keys() and all(torch.equal(sd[k], ref[k])
+                                           for k in ref)
+    log(f"tools: export_model --format torch "
+        f"{'equal to' if same else 'DIFFERS from'} the bundle [{card}]")
+    if not same:
+        raise AssertionError("tools: export_model --format torch")
+    return readings
+
+
+def tools_bench(card, clip: str) -> dict:
+    """``bench_pipeline`` at its defaults on ``clip`` (``write_game_clip``:
+    ``GAME_FRAMES`` frames of 1280x720, the CLI's default
+    ``--frame-limit``), all three stages at float32: the decode rates
+    (cv2, sequential and chunk-parallel), the resident loop's and the
+    end-to-end frames/s, each over the whole clip."""
+    from cut_detection_tpu_torch.cli import bench_pipeline
+    from cut_detection_tpu_torch.data import native_video
+
+    t0 = time.perf_counter()
+    lines = bench_pipeline.main([clip, "--precision", "float32"])
+    wall = time.perf_counter() - t0
+    got = {r["metric"]: r for r in lines}
+    h, w = GAME_HW
+    log(f"tools: bench_pipeline on a seeded game clip ({GAME_FRAMES} frames "
+        f"of {w}x{h}, mp4v, {os.path.getsize(clip):,} B; decoder cv2, "
+        f"native decoder "
+        f"{'built' if native_video.available() else 'not built'} on this "
+        f"host) in {wall:.1f} s: " + "; ".join(
+            f"{m} {r['value']} {r['unit']}"
+            + (f" ({r['frames']} frames)" if "frames" in r else "")
+            for m, r in got.items()) + f" [{card}]")
+    want = ["decode_sequential", "decode_parallel",
+            "classify_device (float32)", "e2e_classify"]
+    if not (list(got) == want and all(r["value"] > 0 for r in lines)
+            and got["e2e_classify"]["frames"] == GAME_FRAMES):
+        raise AssertionError(f"tools: bench_pipeline lines {lines}")
+    return {m: r["value"] for m, r in got.items()}
+
+
+def tools_split(card, workdir) -> dict:
+    """``split_video`` on the golden clip at ``--decode-workers`` 1 and 4:
+    the same JPEG names and bytes."""
+    from cut_detection_tpu_torch.cli import split_video
+
+    clip = os.path.join(GOLDEN, "clip.mp4")
+    trees, walls = [], []
+    for workers in (1, 4):
+        out = os.path.join(workdir, f"split_{workers}")
+        t0 = time.perf_counter()
+        split_video.main([clip, out, "--decode-workers", str(workers)])
+        walls.append(time.perf_counter() - t0)
+        files = {}
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name), "rb") as f:
+                files[name] = f.read()
+        trees.append(files)
+    same = trees[0] == trees[1] and len(trees[0]) == 220
+    log(f"tools: split_video {os.path.basename(clip)}: {len(trees[0])} "
+        f"JPEGs at --decode-workers 1 in {walls[0]:.2f} s, 4 in "
+        f"{walls[1]:.2f} s, bytes {'equal' if same else 'DIFFER'} [{card}]")
+    if not same:
+        raise AssertionError("tools: split_video bytes differ by workers")
+    return {"walls_s": walls}
+
+
+def phase_tools(dev, card, workdir):
+    """The tool entry points on the card as a user runs them: ``doctor``,
+    ``export_model``, ``embed_frames`` (on the ``train`` phase's tree and
+    contrastive pair), ``bench_pipeline`` and ``split_video``.  The doctor
+    runs in its subprocess and the game clip for ``bench_pipeline`` is
+    written on a thread (cv2 releases the GIL) while the exports run;
+    both are awaited before the timed ``embed_frames``."""
+    import threading
+
+    clip = os.path.join(workdir, "game.mp4")
+    failed = []
+
+    def write():
+        try:
+            t0 = time.perf_counter()
+            write_game_clip(clip)
+            log(f"tools: wrote {os.path.basename(clip)} in "
+                f"{time.perf_counter() - t0:.1f} s")
+        except BaseException as e:  # re-raised on the phase's thread
+            failed.append(e)
+
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+    try:
+        finish_doctor = start_doctor(card)
+        out = {"export": tools_export(dev, card, workdir),
+               "doctor": finish_doctor()}
+    finally:
+        writer.join()
+    if failed:
+        raise failed[0]
+    out["embed"] = tools_embed(dev, card, workdir)
+    out["bench"] = tools_bench(card, clip)
+    out["split"] = tools_split(card, workdir)
     return out
 
 
@@ -2516,6 +2827,7 @@ def run() -> tuple[str, list[dict]]:
         paths["serve"] = timed("serve", phase_serve, dev, wd)
         timed("device_glue", phase_device_glue, dev)
         timed("train", phase_train, dev, card, wd)
+        timed("tools", phase_tools, dev, card, wd)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,

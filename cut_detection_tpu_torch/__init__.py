@@ -12,14 +12,18 @@ names so each piece has an obvious counterpart:
 - ``train``              losses, augmentation, the supervised and SimCLR
                          loops and their checkpoints.
 - ``cli``                the ``segment_video``, ``segment_videos``,
-                         ``serve``, ``evaluate`` and training command lines.
+                         ``serve``, ``evaluate`` and training command
+                         lines; the tools ``doctor``, ``embed_frames``,
+                         ``export_model`` (``torch.export`` and ``.pt``),
+                         ``bench_pipeline``, ``split_video`` and
+                         ``labelling``.
 - ``scripts``            measurement entry points (``bench_fused_conv1``).
 
 The port imports nothing of ``cut_detection_tpu``: ``config``,
-``checkpoint``, ``geometry``, ``native``, ``data``, ``utils`` and
-``cli.evaluate`` are its own copies of the JAX package's jax-free modules,
-and the bundled classifier is read from ``cut_detection_tpu/prod_net/``
-by path.
+``checkpoint``, ``geometry``, ``native``, ``data``, ``utils``,
+``cli.evaluate``, ``cli.split_video`` and ``cli.labelling`` are its own
+copies of the JAX package's jax-free modules, and the bundled classifier
+is read from ``cut_detection_tpu/prod_net/`` by path.
 """
 
 # Lazy re-exports (PEP 562): submodule imports run this file first, so it

@@ -2,8 +2,8 @@
 
 Counterpart of ``cut_detection_tpu/models/assembly.py`` (``GluedNet``
 ``:38-137``, ``fold_preprocess`` ``:140-157``, ``folded_input``
-``:160-170``, ``precompute_rings`` ``:173-240``, the loaders ``:243-285,
-307-327``); reference frameID/net.py:193-233.  Every precision rung is
+``:160-170``, ``precompute_rings`` ``:173-240``, the loaders
+``:243-327``); reference frameID/net.py:193-233.  Every precision rung is
 ported (``PORTED_PRECISIONS``).  A ``GluedNet`` is built for inference;
 the training loops (``train/``) initialise one with ``init_weights``,
 switch it to ``.train()`` and apply its recorded BN statistics after each
@@ -293,6 +293,24 @@ def load_triplet_or_default(model_dir: str | None, model_name: str,
         os.path.join(model_dir, f"{model_name}_model_params.json"),
         pick("_classifier_conv.npz", "_classifier_conv.pt"),
         pick("_classifier_linear.npz", "_classifier_linear.pt"),
+        device, precision)
+
+
+def load_embedding_net(model_dir: str, model_name: str, device,
+                       precision: str = "float32"):
+    """A contrastive (conv + projection head) pair for batched embedding
+    inference, on ``device`` at ``precision``; returns ``(net,
+    model_params_dict)``.  Counterpart of the JAX package's
+    ``load_embedding_net`` (``assembly.py:288-305``).
+
+    Reads the ``{name}_conv.npz`` / ``{name}_linear.npz`` pair that both
+    training CLIs' contrastive stage writes, with its
+    ``{name}_embed_params.json`` sidecar.  ``net(x)`` maps NHWC float
+    frames in [0, 1] (RGB) to projection-space embeddings.
+    """
+    return load_and_glue_nets(
+        *(os.path.join(model_dir, f"{model_name}{suffix}") for suffix in (
+            "_embed_params.json", "_conv.npz", "_linear.npz")),
         device, precision)
 
 

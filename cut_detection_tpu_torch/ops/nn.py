@@ -105,8 +105,12 @@ def _pool_matrix_on(in_size: int, out_size: int,
 def adaptive_avg_pool(x, out_size: int):
     """``AdaptiveAvgPool2d(out_size)`` on NHWC input, as two small matmuls
     (rows, then columns) — the matrix form of the JAX package."""
-    ph = _pool_matrix_on(x.shape[1], out_size, x.device)
-    pw = _pool_matrix_on(x.shape[2], out_size, x.device)
+    # Under torch.export (or torch.compile) the matrices are traced
+    # tensors, which must not reach the cache that eager calls share.
+    pool_matrix = (_pool_matrix_on.__wrapped__
+                   if torch.compiler.is_compiling() else _pool_matrix_on)
+    ph = pool_matrix(x.shape[1], out_size, x.device)
+    pw = pool_matrix(x.shape[2], out_size, x.device)
     x = torch.einsum("bhwc,oh->bowc", x, ph)
     return torch.einsum("bhwc,ow->bhoc", x, pw)
 

@@ -92,6 +92,20 @@ PREFETCH_BATCHES = 2
 _STEP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+def frozen_copy(net: GluedNet, *, fold: bool = True) -> GluedNet:
+    """A private copy of ``net`` on its device with its kernel arguments
+    computed once (``ConvBlock.freeze``); with ``fold``, the BGR flip and
+    /255 folded into layer 1 (``fold_preprocess``), so that it takes raw
+    uint8 BGR frames (``folded_input``)."""
+    frozen = GluedNet(net.model_params, net.precision)
+    state = net.state_dict()
+    frozen.load_state_dict(fold_preprocess(state) if fold else state)
+    frozen.to(net.device)
+    for layer in frozen.conv.conv_layers:
+        layer.freeze()
+    return frozen
+
+
 def make_classify_step(net: GluedNet, *,
                        device_resize: tuple[int, int] | None = None,
                        pallas_preprocess: bool = False,
@@ -139,12 +153,7 @@ def make_classify_step(net: GluedNet, *,
         return per_net[key]
     fold = not pallas_preprocess
     # The step must not hold a strong reference to its own weak key.
-    frozen = GluedNet(net.model_params, net.precision)
-    state = net.state_dict()
-    frozen.load_state_dict(fold_preprocess(state) if fold else state)
-    frozen.to(net.device)
-    for layer in frozen.conv.conv_layers:
-        layer.freeze()
+    frozen = frozen_copy(net, fold=fold)
     ring_cache: dict = {}
 
     @torch.inference_mode()

@@ -7,6 +7,7 @@ the caller asks for it (``--cpu``), and a missing CUDA device is an error.
 from __future__ import annotations
 
 import subprocess
+import threading
 
 import torch
 
@@ -41,3 +42,32 @@ def card_info() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def bounded_call(fn, timeout: float, what: str):
+    """``fn()`` on a daemon thread, bounded in wall-clock time.
+
+    Counterpart of ``cut_detection_tpu/utils/platform.py:bounded_call``.
+    Returns ``fn()``'s value and re-raises its exception; raises
+    ``TimeoutError("<what> did not complete within <t> s")`` when the
+    call outlives ``timeout`` seconds.  A hung CUDA call (a card that
+    stopped answering) cannot be interrupted, so the abandoned thread is
+    left to the process's exit; the caller gets a failure it can report.
+    """
+    out: list = []
+    err: list = []
+
+    def work():
+        try:
+            out.append(fn())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            err.append(e)
+
+    t = threading.Thread(target=work, daemon=True, name=f"bounded-{what}")
+    t.start()
+    t.join(timeout)
+    if err:
+        raise err[0]
+    if not out:
+        raise TimeoutError(f"{what} did not complete within {timeout:g} s")
+    return out[0]

@@ -11,12 +11,14 @@ it calls: ``config`` (with ``TrainConfig`` and ``ContrastiveConfig``),
 ``ParallelVideoReader``), ``data.native_video`` (``NativeVideoSource``,
 ``NativeYUVSource``, ``yuv420_to_bgr24_host``), ``data.frames``,
 ``data.loader`` (``_collate``, ``iter_batches``, ``PrefetchLoader``),
-``data.shm_loader`` (both transfers), ``cli.evaluate`` and
+``data.shm_loader`` (both transfers), ``cli.evaluate``,
+``cli.split_video``, ``cli.labelling`` and
 ``ops.kernels.conv1_stages._strip_rows_for``.  The prod
 classifier's files are read by path from the JAX package's directory.
 """
 
 import dataclasses
+import json
 import logging
 import os
 import subprocess
@@ -32,6 +34,8 @@ from cut_detection_tpu import native as jax_native
 from cut_detection_tpu.checkpoint import convert as jax_convert
 from cut_detection_tpu.checkpoint import io as jax_io
 from cut_detection_tpu.cli import evaluate as jax_evaluate
+from cut_detection_tpu.cli import labelling as jax_labelling
+from cut_detection_tpu.cli import split_video as jax_split_video
 from cut_detection_tpu.data import frames as jax_frames
 from cut_detection_tpu.data import loader as jax_loader
 from cut_detection_tpu.data import native_video as jax_native_video
@@ -41,7 +45,7 @@ from cut_detection_tpu.utils import logging as jax_logging
 from cut_detection_tpu.utils import profiling as jax_profiling
 from cut_detection_tpu_torch import config, native
 from cut_detection_tpu_torch.checkpoint import convert, io
-from cut_detection_tpu_torch.cli import evaluate
+from cut_detection_tpu_torch.cli import evaluate, labelling, split_video
 from cut_detection_tpu_torch.data import (
     frames,
     loader,
@@ -515,3 +519,106 @@ def test_evaluate_matches(tmp_path, name):
         evaluate.evaluate(str(bad), truth, 10)
     assert evaluate.main([truth, truth, "--num-frames", "590"]) == \
         jax_evaluate.main([truth, truth, "--num-frames", "590"])
+
+
+@pytest.fixture(scope="module")
+def clip30(tmp_path_factory):
+    """A seeded 30-frame 320x180 clip in three colour blocks."""
+    import cv2
+
+    path = str(tmp_path_factory.mktemp("clip30") / "clip30.mp4")
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                         (320, 180))
+    rng = np.random.default_rng(30)
+    for colour in [(40, 120, 40)] * 12 + [(10, 10, 10)] * 6 \
+            + [(150, 60, 60)] * 12:
+        base = np.full((180, 320, 3), colour, np.uint8)
+        wr.write(cv2.add(base, rng.integers(0, 30, (180, 320, 3),
+                                            dtype=np.uint8)))
+    wr.release()
+    return path
+
+
+def _tree_bytes(path) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("flags", [["--resize", "128"],
+                                   ["--decode-workers", "2",
+                                    "--max-frames", "25"]])
+def test_split_video_matches(tmp_path, clip30, flags, capsys):
+    """``split_video`` writes the JAX CLI's JPEG names and bytes, and
+    prints its lines, sequentially and with two decode workers."""
+    ours, theirs = tmp_path / "ours", tmp_path / "theirs"
+    split_video.main([clip30, str(ours), *flags])
+    out_ours = capsys.readouterr().out
+    jax_split_video.main([clip30, str(theirs), *flags])
+    assert out_ours == capsys.readouterr().out
+    got, want = _tree_bytes(ours), _tree_bytes(theirs)
+    assert list(got) == [f"frame_{i:07}.jpg" for i in range(
+        25 if "--max-frames" in flags else 30)]
+    assert got == want
+
+
+@pytest.fixture
+def label_frames(tmp_path):
+    import cv2
+
+    rng = np.random.default_rng(0)
+    for i in range(10):
+        cv2.imwrite(str(tmp_path / f"frame_{i:07}.jpg"),
+                    rng.integers(0, 256, (36, 64, 3), dtype=np.uint8))
+    return str(tmp_path)
+
+
+def test_labelling_terminal_app_matches(label_frames, monkeypatch, capsys):
+    """``get_labels``, ``write_label`` and the terminal app (a seeded
+    session of scripted keys) give the JAX module's ``labels.json`` and
+    its output."""
+    assert labelling.LABELS == jax_labelling.LABELS
+    assert labelling.get_labels(label_frames) == {}
+    keys = ["e", "s", "a", "b", "x", "e", "q"]
+    results = []
+    for mod in (labelling, jax_labelling):
+        path = os.path.join(label_frames, "labels.json")
+        if os.path.exists(path):
+            os.remove(path)
+        mod.write_label(label_frames, {}, 9, "B")
+        script = iter(keys)
+        monkeypatch.setattr("builtins.input", lambda: next(script))
+        mod.main([label_frames, "--terminal", "--seed", "4"])
+        with open(path, "rb") as f:
+            results.append((f.read(), capsys.readouterr().out,
+                            mod.get_labels(label_frames)))
+    assert results[0] == results[1]
+    assert len(results[0][2]) >= 3
+
+
+def test_labelling_streamlit_app_matches(label_frames, monkeypatch):
+    """The streamlit branch, through ``main`` without ``--terminal``, on
+    ``tests/test_labelling_ui.py``'s scripted double with the frame draws
+    pinned: the same ``labels.json`` and the same page as the JAX module's."""
+    from test_labelling_ui import _ScriptedStreamlit
+
+    draws = iter(range(100))
+    fixed = type("Rng", (), {"integers": lambda self, n: next(draws) % n})()
+    monkeypatch.setattr(np.random, "default_rng", lambda *a, **k: fixed)
+    results = []
+    for mod in (labelling, jax_labelling):
+        path = os.path.join(label_frames, "labels.json")
+        if os.path.exists(path):
+            os.remove(path)
+        draws = iter(range(100))
+        st = _ScriptedStreamlit([None, "Endzone", "All-22", "Blank"])
+        monkeypatch.setitem(sys.modules, "streamlit", st)
+        for _ in range(4):
+            st.next_run()
+            mod.main([label_frames])
+        with open(path, "rb") as f:
+            results.append((f.read(), st.rendered))
+    assert results[0] == results[1]
+    assert json.loads(results[0][0]) == {"0": "EZ", "1": "A22", "2": "B"}

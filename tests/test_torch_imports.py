@@ -12,6 +12,7 @@ packages raise on import.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -211,3 +212,35 @@ def test_training_clis_run_without_jax(tmp_path):
         "init_model_embed_params.json", "init_model_linear.npz",
         "init_model_model_params.json", "train_state_0000.npz",
         "train_state_meta.json"]
+
+
+def test_tool_clis_run_without_jax(tmp_path):
+    """``doctor --full``, ``split_video``, ``export_model`` (both formats)
+    and ``bench_pipeline`` on the CPU with jax and the JAX package
+    blocked: their function-level imports reach only the port."""
+    clip = os.path.join(REPO, "tests", "golden", "clip.mp4")
+    frames = str(tmp_path / "frames")
+    proc = _run(f"""
+        import json, torch
+        from cut_detection_tpu_torch.cli import (
+            bench_pipeline, doctor, export_model, split_video)
+        try:
+            doctor.main(["--full", "--json", "--cpu"])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        split_video.main([{clip!r}, {frames!r}, "--max-frames", "3"])
+        export_model.main(["--use-default-net", "--cpu", "--output",
+                           {str(tmp_path / "p.pt2")!r}, "--batch-size", "2",
+                           "--height", "36", "--width", "64"])
+        export_model.main(["--use-default-net", "--cpu", "--format",
+                           "torch", "--output", {str(tmp_path / "t")!r}])
+        line = bench_pipeline.bench_classify(1, "float32", 0.0,
+                                             device=torch.device("cpu"))
+        assert line["value"] > 0
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[0])["healthy"] is True
+    assert sorted(os.listdir(frames)) == [
+        f"frame_{i:07}.jpg" for i in range(3)]

@@ -37,6 +37,9 @@ from cut_detection_tpu_torch.pipeline import (
 from cut_detection_tpu_torch.segmentation import glue
 from cut_detection_tpu_torch.segmentation.csv_io import write_segments_csv
 from cut_detection_tpu_torch.segmentation.rle import Segmentation
+# Builds both native libraries through the port's locked path and clears
+# a JAX binding's cached miss (see its docstring).
+from test_torch_copies import native_libs  # noqa: F401 (a fixture)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CPU = torch.device("cpu")
@@ -331,10 +334,13 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
 @pytest.mark.parametrize("clip,ref", [("clip.mp4", "ref_segments.csv"),
                                       ("clip_odd.mp4",
                                        "ref_segments_odd.csv")])
-def test_cli_transfer_yuv420_matches_golden_and_jax_csv(tmp_path, clip, ref):
+def test_cli_transfer_yuv420_matches_golden_and_jax_csv(tmp_path, clip, ref,
+                                                       native_libs):
     """``--cpu --transfer yuv420`` (the native YUV decoder, the conversion
     on the device, float32) writes the reference CSV, and the JAX
-    pipeline's under ``transfer="yuv420"``, byte for byte."""
+    pipeline's under ``transfer="yuv420"``, byte for byte.  The JAX
+    pipeline reads the JAX package's decoder binding, which
+    ``native_libs`` readies."""
     from cut_detection_tpu_torch.data import native_video
 
     if not native_video.yuv_available():

@@ -38,6 +38,9 @@ from cut_detection_tpu_torch.pipeline import (
     make_classify_step,
     segment_video_file,
 )
+# Builds both native libraries through the port's locked path and clears
+# a JAX binding's cached miss (see its docstring).
+from test_torch_copies import native_libs  # noqa: F401 (a fixture)
 
 T = torch.from_numpy
 # tests/test_yuv.py's shapes.
@@ -96,9 +99,10 @@ def test_plain_op_matches_jax(h, w):
 
 
 @pytest.mark.parametrize("h,w", SHAPES)
-def test_plain_op_matches_live_swscale(h, w):
+def test_plain_op_matches_live_swscale(h, w, native_libs):
     """Against swscale's converter through the port's binding (and the
-    JAX package's binding of the same library)."""
+    JAX package's binding of the same library, which ``native_libs``
+    readies: in a fresh checkout it may have cached a failed build)."""
     _needs_yuv_decoder()
     from cut_detection_tpu.data import native_video as jax_native_video
 
