@@ -172,6 +172,33 @@ Phases, each of which raises on failure:
              float32 (cv2 decode, sequential and parallel; the resident
              loop; end to end); ``split_video`` on the golden clip, the
              same JPEG bytes at ``--decode-workers`` 1 and 4.
+13. parallel — several cards and processes (``parallel/``): (a) the
+             slice stream through the device loop with each batch split
+             over a mesh of every card (one card listed twice where there
+             is one: the split and the gather, the shards sharing it) at
+             float32 and ``int8_mxu``: classes and CSV bytes of the
+             unsharded loop, conf within ``PARALLEL_CONF_TOL``, each
+             shard's launches, both loops' frames/s; (b) a 2-rank group
+             (NCCL with a card a rank, gloo over CUDA tensors on one
+             card) running the supervised step at the prod widths and the
+             contrastive step at its defaults, each against the
+             single-rank step (loss within rtol 1e-5, each all-reduced
+             gradient leaf within ``PARALLEL_GRAD_RTOL`` of its norm,
+             parameters ``PARALLEL_PARAM_TOL``, BN statistics
+             ``PARALLEL_STAT_TOL``), and a tiny ``train_supervised`` with
+             tails; (c)
+             ``segment_videos --multi-host --data-parallel`` as two
+             processes with torchrun's variables over the golden clips,
+             the union of their CSVs the single process's byte for byte;
+             (d) with two or more cards, every kernel route launched on
+             ``cuda:1`` while ``cuda:0`` is current, against its plain
+             version, and (e) ``train_supervised --data-parallel`` over
+             every card against the same CLI on one: one step of 128,
+             its gradients read from the snapshot's Adam moments; (f)
+             ``segment_videos``' split of two 2,000-frame 1280x720 clips
+             a card over a process a card (the golden clips over one
+             card twice where there is one), the one-card CSVs byte for
+             byte, walls of both.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -1722,7 +1749,7 @@ TREE_COLOURS = {"a22": (40, 120, 40), "ez": (60, 60, 150), "b": (10, 10, 10)}
 TREE_MIN_ACC = 0.9           # the trained triplet on the tree's frames
 # The tools phase's bench_pipeline clip (write_game_clip): a game's frame
 # size, as many frames as the CLI's default --frame-limit.
-GAME_FRAMES = 2000
+CLIP_FRAMES = 2000
 GAME_HW = (720, 1280)
 
 
@@ -1905,7 +1932,7 @@ def write_frame_tree(path: str, n: int, seed: int = 5) -> None:
         f.write("\n".join(rows) + "\n")
 
 
-def write_game_clip(path: str, n: int = GAME_FRAMES, seed: int = 7) -> None:
+def write_game_clip(path: str, n: int = CLIP_FRAMES, seed: int = 7) -> None:
     """``n`` seeded ``GAME_HW`` frames at 30 fps under ``path`` (mp4v), in
     segments of 60-240 frames, cycling A22 / EZ / blank: each segment a
     camera pan, 2 pixels a frame, across a field of its class colour
@@ -2284,7 +2311,7 @@ def tools_export(dev, card, workdir) -> dict:
 
 def tools_bench(card, clip: str) -> dict:
     """``bench_pipeline`` at its defaults on ``clip`` (``write_game_clip``:
-    ``GAME_FRAMES`` frames of 1280x720, the CLI's default
+    ``CLIP_FRAMES`` frames of 1280x720, the CLI's default
     ``--frame-limit``), all three stages at float32: the decode rates
     (cv2, sequential and chunk-parallel), the resident loop's and the
     end-to-end frames/s, each over the whole clip."""
@@ -2296,7 +2323,7 @@ def tools_bench(card, clip: str) -> dict:
     wall = time.perf_counter() - t0
     got = {r["metric"]: r for r in lines}
     h, w = GAME_HW
-    log(f"tools: bench_pipeline on a seeded game clip ({GAME_FRAMES} frames "
+    log(f"tools: bench_pipeline on a seeded game clip ({CLIP_FRAMES} frames "
         f"of {w}x{h}, mp4v, {os.path.getsize(clip):,} B; decoder cv2, "
         f"native decoder "
         f"{'built' if native_video.available() else 'not built'} on this "
@@ -2307,7 +2334,7 @@ def tools_bench(card, clip: str) -> dict:
     want = ["decode_sequential", "decode_parallel",
             "classify_device (float32)", "e2e_classify"]
     if not (list(got) == want and all(r["value"] > 0 for r in lines)
-            and got["e2e_classify"]["frames"] == GAME_FRAMES):
+            and got["e2e_classify"]["frames"] == CLIP_FRAMES):
         raise AssertionError(f"tools: bench_pipeline lines {lines}")
     return {m: r["value"] for m, r in got.items()}
 
@@ -2693,6 +2720,476 @@ def phase_serve(dev, workdir):
     return dict(launches)
 
 
+# The sharded loop against the unsharded one: float32 within
+# tests/test_parallel.py's 1e-5.  At int8_mxu the pooled features and the
+# head's hidden layer are rounded to bf16 after cuBLAS sums them, and it
+# sums a GEMM of 32 or 64 rows in another order than one of 128, so a
+# rounding may land one bf16 ulp apart, as between the card and the CPU:
+# the rung's QUANT_CONF_TOL (2.403e-4 measured over 2 shards of one
+# card, 6.504e-3 over 4 cards).
+PARALLEL_CONF_TOL = {"float32": 1e-5, "int8_mxu": QUANT_CONF_TOL}
+PARALLEL_PARAM_TOL = 2e-3  # a first AdamW step: 2 * lr where a near-zero
+                           # gradient's sign differs (test_parallel.py),
+                           # plus two ulps of the parameter (the roundings
+                           # of p - lr and p + lr), as params_within takes
+PARALLEL_STAT_TOL = 1e-5   # BN running statistics: global-batch moments
+# Each all-reduced gradient leaf against the single rank's, relative to
+# the leaf's norm.  A gradient missing the other ranks' terms, halved or
+# of the wrong sign is off by 1e-1 or more (0.17-24.9 for four such
+# faults in tests/test_torch_distributed.py), and a first Adam step
+# passes any of those within PARALLEL_PARAM_TOL: the gradients carry the
+# check.  The float32 sums run in another order: layer 1's weight
+# gradient sums millions of products, and cuDNN picks its algorithm by
+# the shard's shape; 2.710e-5 over 2 ranks, 2.210e-4 over 4 (3.9e-5 on
+# the CPU, whose bar is 1e-4).
+PARALLEL_GRAD_RTOL = 1e-3
+
+
+def off_device_kernels(dev) -> dict:
+    """Every kernel route launched on ``dev`` while the caller keeps
+    another card current, each against its plain version on the same
+    inputs on ``dev``: layer 1 and the mid-stack block at float32 (the
+    FMA route) on the prod net, the int8 blocks (the tensor-core routes),
+    the resize + normalize and YUV -> BGR kernels and the stage bisection
+    of layer 1.  Returns ``{kernel: max_abs_err}``; raises where one
+    parts from its plain version or writes to another device."""
+    from cut_detection_tpu_torch.models.assembly import (
+        load_default_net,
+        precompute_rings,
+    )
+    from cut_detection_tpu_torch.ops.kernels import conv1_stages as cs
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+        conv1_block,
+        conv1_block_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv_block import (
+        conv_block,
+        conv_block_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv_block_i8 import (
+        conv1_block_i8,
+        conv1_block_i8_plain,
+        conv_block_i8,
+        conv_block_i8_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.resize_normalize import (
+        resize_normalize,
+        resize_normalize_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import (
+        yuv420_to_bgr,
+        yuv420_to_bgr_plain,
+    )
+    from cut_detection_tpu_torch.pipeline import frozen_copy
+    from cut_detection_tpu_torch.scripts.profile_fused_conv1 import (
+        seeded_inputs,
+    )
+
+    errs = {}
+
+    def held(name, got, want, tol):
+        if got.device != dev:
+            raise AssertionError(f"{name} wrote to {got.device}, not {dev}")
+        err = float((got.float() - want.float()).abs().max())
+        if err > tol:
+            raise AssertionError(f"{name} on {dev}: off its plain version "
+                                 f"by {err} > {tol}")
+        errs[name] = err
+
+    frames = synthetic_frames(8)
+    x = torch.from_numpy(frames).to(dev)
+    with torch.inference_mode():
+        net = frozen_copy(load_default_net(dev)[0])
+        h = x
+        for i, layer in enumerate(net.conv.conv_layers):
+            args = layer.kernel_args()
+            kernel, plain = ((conv1_block, conv1_block_plain) if i == 0
+                             else (conv_block, conv_block_plain))
+            got = kernel(h, *args)
+            held(f"{kernel.__name__}[f32] layer {i + 1}", got,
+                 plain(h, *args), F32_TOL)
+            h = got
+        net = frozen_copy(load_default_net(dev, "int8_mxu")[0])
+        h, affine = x, None
+        for i, (layer, ring) in enumerate(zip(
+                net.conv.conv_layers, precompute_rings(net, *MODEL_HW))):
+            k, so, scale = layer.i8_args(affine)
+            kernel, plain = ((conv1_block_i8, conv1_block_i8_plain) if i == 0
+                             else (conv_block_i8, conv_block_i8_plain))
+            got = kernel(h, k, so, ring, scale)
+            held(f"{kernel.__name__} layer {i + 1}", got,
+                 plain(h, k, so, ring, scale), 0.0)
+            h, affine = got, layer.i8_pending_affine()
+        src = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 256, (4, *SRC_HW, 3), dtype=np.uint8)).to(dev)
+        held("resize_normalize", resize_normalize(src, *MODEL_HW),
+             resize_normalize_plain(src, *MODEL_HW), K5_TOL)
+        planes = torch.from_numpy(yuv420_planes(frames)).to(dev)
+        held("yuv420_to_bgr", yuv420_to_bgr(planes, *MODEL_HW),
+             yuv420_to_bgr_plain(planes, *MODEL_HW), 0.0)
+        xs, w = seeded_inputs(3, dev)
+        got = cs.conv1_stages(xs, w, "full")
+        if got[0].device != dev:
+            raise AssertionError(f"conv1_stages wrote to {got[0].device}")
+        errs["conv1_stages[full]"] = cs.check_stage(
+            "full", xs, w, got, cs.conv1_stages_plain(xs, w, "full"))
+    return errs
+
+
+def parallel_classify(cards, frames, workdir) -> dict:
+    """(a) The slice stream through the device loop with its batches
+    split over a mesh of every card (one card listed twice where there
+    is one), at float32 and ``int8_mxu``, against the unsharded loop on
+    the first card: the same classes and CSV bytes, conf within
+    ``PARALLEL_CONF_TOL``, each shard's launches; then frames/s of both
+    loops on a longer stream."""
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.parallel.mesh import make_mesh
+    from cut_detection_tpu_torch.pipeline import (
+        batch_frames,
+        classify_batches,
+    )
+
+    mesh = make_mesh(cards if len(cards) > 1 else cards * 2)
+    shards = len(mesh.devices)
+    log(f"parallel: mesh over {[str(d) for d in mesh.devices]}" + (
+        " (the one card listed twice: the split and the gather run, the "
+        "shards share the card)" if len(cards) == 1 else ""))
+    long = np.concatenate([frames] * 5)
+    out = {}
+    for precision in ("float32", "int8_mxu"):
+        net, _ = load_default_net(cards[0], precision)
+
+        def run(stream, m=None):
+            t0 = time.perf_counter()
+            res = classify_batches(batch_frames(iter(stream), BATCH), net,
+                                   batch_size=BATCH, length=len(stream),
+                                   print_every=0, mesh=m)
+            return res, time.perf_counter() - t0
+
+        (conf1, pred1, _), _ = run(frames)
+        zero_launches()
+        (conf, pred, stats), _ = run(frames, mesh)
+        launches = read_launches()
+        check_launches(f"parallel {precision}", launches,
+                       per_batch(stats.batches * shards, precision))
+        if not np.array_equal(pred, pred1):
+            raise AssertionError(f"parallel {precision}: classes differ "
+                                 "from the unsharded loop")
+        err = float(np.abs(conf - conf1).max())
+        if err > PARALLEL_CONF_TOL[precision]:
+            raise AssertionError(f"parallel {precision}: conf off by {err}")
+        same = (_csv_bytes(conf, pred, os.path.join(workdir, "m.csv"))
+                == _csv_bytes(conf1, pred1, os.path.join(workdir, "u.csv")))
+        if not same:
+            raise AssertionError(f"parallel {precision}: CSV differs")
+        walls = {}
+        for tag, m in (("unsharded", None), ("sharded", mesh),
+                       ("sharded", mesh), ("unsharded", None)):
+            walls.setdefault(tag, []).append(run(long, m)[1])
+        fps = {tag: round(len(long) / min(w), 1) for tag, w in walls.items()}
+        log(f"parallel: {precision} sharded over {shards}, {stats.batches} "
+            f"batches: classes and CSV identical, conf max_abs_err "
+            f"{err:.3e} (tol {PARALLEL_CONF_TOL[precision]:.0e}), "
+            f"launches "
+            f"{ {k: v for k, v in launches.items() if v} }; frames/s on "
+            f"{len(long)} frames (best of 2): {fps}")
+        out[precision] = {"conf_err": err, "fps": fps}
+    return out
+
+
+def params_within(a, b, tol: float) -> bool:
+    """``|a - b| <= tol`` plus two ulps of ``b`` on every element."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return bool(np.all(np.abs(a - b) <= tol + 2 * np.spacing(np.abs(b))))
+
+
+def _step_held(what, res, prefix, loss_key, state, loss):
+    """A rank's step (``res``) against the single-rank ``state``/``loss``:
+    the loss within rtol 1e-5, each gradient leaf within
+    ``PARALLEL_GRAD_RTOL`` of its norm, parameters ``PARALLEL_PARAM_TOL``,
+    BN statistics ``PARALLEL_STAT_TOL``; returns the worst of each."""
+    rel = abs(float(res[loss_key]) - loss) / max(abs(loss), 1e-30)
+    leaf, grad = _worst_leaf({k: res[f"{prefix}_grad/{k}"]
+                              for k, _ in state.net.named_parameters()},
+                             _grads(state.net))
+    worst = {"loss_rel": rel, "grad_rel": grad, "grad_leaf": leaf,
+             "param": 0.0, "stat": 0.0}
+    ok = rel <= 1e-5 and grad <= PARALLEL_GRAD_RTOL
+    for k, v in state.net.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a, b = res[f"{prefix}/{k}"], v.cpu().numpy()
+        kind = "stat" if "running" in k else "param"
+        worst[kind] = max(worst[kind], float(np.abs(a - b).max()))
+        ok &= params_within(a, b, PARALLEL_PARAM_TOL if kind == "param"
+                            else PARALLEL_STAT_TOL)
+    if not ok:
+        raise AssertionError(f"parallel {what}: 2 ranks against 1: {worst}")
+    return worst
+
+
+def parallel_train(dev, workdir) -> dict:
+    """(b) A 2-rank group (``local_cluster``: NCCL with a card a rank, else
+    gloo over CUDA tensors on the one card) runs the supervised step at
+    the prod net's widths (batch 128 of 144x256) and the contrastive
+    step at the contrastive defaults (32 frames of 360x640), each rank on
+    its half, and a tiny ``train_supervised`` with tails; the steps
+    against the single-rank step on the whole batch."""
+    from cut_detection_tpu_torch.parallel import local_cluster as lc
+
+    out_dir = tempfile.mkdtemp(dir=workdir)
+    t0 = time.perf_counter()
+    texts = lc.spawn_cluster(2, device="cuda", widths="prod", out=out_dir,
+                             timeout=300)
+    wall = time.perf_counter() - t0
+    backend = re.search(r"backend=(\w+)", texts[0]).group(1)
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(2)]
+    for k in ranks[0]:
+        if not np.array_equal(ranks[0][k], ranks[1][k]):
+            raise AssertionError(f"parallel: ranks differ on {k}")
+    cfg, x, y = lc.supervised_case("prod")
+    state, m = lc.supervised_step(cfg, x, y, dev)
+    sup = _step_held("supervised", ranks[0], "sup", "sup_loss", state,
+                     float(m["loss"]))
+    cfg, x = lc.contrastive_case("prod")
+    state, m = lc.contrastive_step(cfg, x, dev)
+    con = _step_held("contrastive", ranks[0], "con", "con_loss", state,
+                     float(m["loss"]))
+    history = json.loads(str(ranks[0]["tail_history"]))
+    if int(ranks[0]["tail_steps"]) != 8 or not all(
+            np.isfinite(h["train_loss"]) for h in history):
+        raise AssertionError(f"parallel: tail run {history}")
+    log(f"parallel: 2 ranks over {backend} ({wall:.1f} s with start-up): "
+        f"supervised at batch {len(y)} {sup}, contrastive at batch "
+        f"{len(x)} {con}; ranks equal; tail run 8 steps, validation tail "
+        f"counted once")
+    return {"backend": backend, "supervised": sup, "contrastive": con,
+            "wall_s": wall}
+
+
+def parallel_multi_host(workdir) -> None:
+    """(c) ``segment_videos --multi-host --data-parallel`` as two processes
+    with torchrun's variables over the golden clips: each takes its
+    round-robin video, and the union of their CSVs is the single-process
+    run's, byte for byte (and the references')."""
+    import shutil
+
+    from cut_detection_tpu_torch.cli import segment_videos
+    from cut_detection_tpu_torch.parallel.distributed import free_port
+
+    runs = {}
+    for tag in ("single", "multi"):
+        d = os.path.join(workdir, "mh_" + tag)
+        os.makedirs(d)
+        runs[tag] = [shutil.copy(os.path.join(GOLDEN, c), d)
+                     for c in ("clip.mp4", "clip_odd.mp4")]
+    flags = ["--transfer", "bgr", "--data-parallel"]
+    segment_videos.main(runs["single"] + flags)
+    port = str(free_port())
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT, RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                   MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cut_detection_tpu_torch.cli."
+             "segment_videos", *runs["multi"], *flags, "--multi-host"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    texts = []
+    try:
+        for proc in procs:
+            texts.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, text) in enumerate(zip(procs, texts)):
+        if proc.returncode or f"process {rank} segments 1 of 2" not in text:
+            raise AssertionError(f"multi-host rank {rank} rc "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    for a, b, ref in zip(runs["single"], runs["multi"],
+                         ("ref_segments.csv", "ref_segments_odd.csv")):
+        got = [read(p[:-4] + "_segments.csv") for p in (a, b)]
+        if not got[0] == got[1] == read(os.path.join(GOLDEN, ref)):
+            raise AssertionError(f"multi-host: {os.path.basename(b)}'s CSV "
+                                 "differs from the single process's")
+    log("parallel: segment_videos --multi-host --data-parallel as 2 "
+        "torchrun-style processes: one video each, the union of their "
+        "CSVs the single process's and the references' byte for byte")
+
+
+def parallel_train_cli(workdir, n: int) -> dict:
+    """(e) ``train_supervised --data-parallel`` over the ``n`` cards (the
+    CLI spawns a rank a card) on a tree of 171 labelled JPEGs, one epoch
+    of one global batch of 128 and a validation split of 43 (which does
+    not divide over the ranks), against the same CLI on one card: the
+    step's gradients, read from the epoch snapshot's first Adam moment
+    (``0.1 g`` after one step), each leaf within ``PARALLEL_GRAD_RTOL`` of
+    its norm; every parameter of the two triplets within
+    ``PARALLEL_PARAM_TOL``; the data-parallel triplet finite."""
+    from cut_detection_tpu_torch.checkpoint.convert import params_from_jax
+    from cut_detection_tpu_torch.checkpoint.io import load_bundle
+    from cut_detection_tpu_torch.cli import train_supervised
+
+    tree = os.path.join(workdir, "dp_tree")
+    os.makedirs(tree)
+    write_frame_tree(tree, 171)  # floor(171 * 0.75) = 128 to train
+    walls, params, moments = {}, {}, {}
+    for tag, flags in (("one card", []), (f"{n} ranks", ["--data-parallel"])):
+        models = os.path.join(workdir, f"dp_models_{len(flags)}")
+        t0 = time.perf_counter()
+        train_supervised.main(["--data-dirs", tree, "--epochs", "1",
+                               "--num-workers", "2", "--model-dir", models,
+                               "--model-name", "dp", *flags])
+        walls[tag] = time.perf_counter() - t0
+        params[tag] = params_from_jax({
+            part: load_bundle(os.path.join(
+                models, f"dp_classifier_{part}.npz"))
+            for part in ("conv", "linear")})
+        with np.load(os.path.join(models, "train_state_0000.npz")) as z:
+            moments[tag] = {k: z[k] for k in z.files
+                            if k.startswith("optimizer/")
+                            and k.endswith("/exp_avg")}
+    a, b = params.values()
+    keys = [k for k in a if "running" not in k]
+    worst = max(float((a[k] - b[k]).abs().max()) for k in keys)
+    ma, mb = moments.values()
+    if not ma or ma.keys() != mb.keys():
+        raise AssertionError(f"parallel: snapshot moments {list(ma)} / "
+                             f"{list(mb)}")
+    leaf, grad = _worst_leaf(mb, ma)
+    top = sorted(((_rel(mb[k], ma[k]), k.split("/")[1]) for k in ma),
+                 reverse=True)[:3]
+    if grad > PARALLEL_GRAD_RTOL or not all(
+            params_within(b[k], a[k], PARALLEL_PARAM_TOL)
+            for k in keys) or not all(
+            torch.isfinite(v).all() for v in b.values()):
+        raise AssertionError(f"parallel: train_supervised over {n} ranks "
+                             f"off the one-card run: parameters by {worst}, "
+                             f"gradient leaf {leaf} rel {grad}")
+    log(f"parallel: train_supervised --data-parallel over {n} ranks, 1 "
+        f"step of 128: gradients worst leaves rel "
+        f"{[(leaf, f'{r:.3e}') for r, leaf in top]} (tol "
+        f"{PARALLEL_GRAD_RTOL:.0e}), parameters within {worst:.3e} of one "
+        f"card's (tol {PARALLEL_PARAM_TOL:.0e}); wall with start-up "
+        f"{ {k: round(v, 1) for k, v in walls.items()} } s")
+    return {"grad_rel": grad, "param": worst, "wall_s": walls}
+
+
+def video_frames(path: str) -> int:
+    """The frame count of a video's container header (cv2)."""
+    from cut_detection_tpu_torch.data.frames import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
+def parallel_split_videos(workdir, devices) -> dict:
+    """(f) ``segment_videos``' split of the videos over ``devices``
+    (``segment_per_device``, which ``--data-parallel`` runs over several
+    cards: a process a device, each its round-robin share) against the
+    CLI on one card: the same CSV bytes; wall with start-up both ways,
+    and the split's frames/s over its slowest process's time from loading
+    the net (its interpreter's start-up excluded).
+    Over distinct cards two copies a card of a seeded
+    ``CLIP_FRAMES``-frame 1280x720 clip; over one card listed twice the
+    golden clips (a check of the split: the processes' start-up is most
+    of its wall)."""
+    import shutil
+
+    from cut_detection_tpu_torch.cli import segment_videos
+
+    base = tempfile.mkdtemp(prefix="split_videos_", dir=workdir)
+    if len(set(devices)) > 1:
+        clip = os.path.join(base, "clip.mp4")
+        write_game_clip(clip)
+        sources = [clip] * (2 * len(devices))
+    else:
+        sources = [os.path.join(GOLDEN, c)
+                   for c in ("clip.mp4", "clip_odd.mp4")]
+    flags = ["--transfer", "bgr", "--data-parallel"]
+    tags = ("one card", f"{len(devices)} processes")
+    walls, csvs = {}, {}
+    for k, tag in enumerate(tags):
+        d = os.path.join(base, str(k))
+        os.makedirs(d)
+        paths = [shutil.copy(src, os.path.join(d, f"v{i}.mp4"))
+                 for i, src in enumerate(sources)]
+        t0 = time.perf_counter()
+        if k == 0:
+            outs = segment_videos.main(paths + flags[:2])
+        else:
+            ns = segment_videos.build_parser().parse_args(paths + flags)
+            outs, busy = segment_videos.segment_per_device(ns, paths,
+                                                           devices)
+        walls[tag] = time.perf_counter() - t0
+        csvs[tag] = []
+        for out in outs:
+            with open(out, "rb") as f:
+                csvs[tag].append(f.read())
+    if csvs[tags[0]] != csvs[tags[1]]:
+        raise AssertionError("parallel: the videos split over "
+                             f"{[str(d) for d in devices]} wrote other CSVs "
+                             "than one card")
+    frames = sum(video_frames(p) for p in sources)
+    fps = {tag: round(frames / w, 1) for tag, w in walls.items()}
+    fps[tags[1] + " after start-up"] = round(frames / busy, 1)
+    log(f"parallel: segment_videos' split over "
+        f"{[str(d) for d in devices]}, {len(sources)} videos of {frames} "
+        f"frames in all: the one-card CSVs byte for byte; wall with "
+        f"start-up {({t: round(w, 2) for t, w in walls.items()})} s, "
+        f"{fps} frames/s")
+    return {"wall_s": walls, "busy_s": busy, "fps": fps}
+
+
+def phase_parallel(dev, frames, workdir):
+    """Several cards and several processes: (a) the sharded classify
+    loop, (b) the 2-rank training steps, (c) ``segment_videos
+    --multi-host``, (f) ``segment_videos``' split of the videos a process
+    a card (one card twice where there is one), and (d), with two or
+    more cards, every kernel route launched on ``cuda:1`` while
+    ``cuda:0`` is current and (e) the training CLI's ``--data-parallel``
+    over every card."""
+    import concurrent.futures
+
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    out = {"cards": n, "classify": parallel_classify(cards, frames, workdir)}
+    # (b) and (c) wait mostly on their processes' start-up: side by side.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        train = pool.submit(parallel_train, dev, workdir)
+        multi_host = pool.submit(parallel_multi_host, workdir)
+        out["train"] = train.result()
+        multi_host.result()
+    out["split"] = parallel_split_videos(workdir,
+                                         cards if n >= 2 else cards * 2)
+    if n >= 2:
+        with torch.cuda.device(0):
+            out["off_device"] = off_device_kernels(cards[1])
+            if torch.cuda.current_device() != 0:
+                raise AssertionError("a kernel launch left cuda:1 current")
+        log(f"parallel: every kernel route on cuda:1 with cuda:0 current, "
+            f"max_abs_err against the plain versions {out['off_device']}")
+        out["train_cli"] = parallel_train_cli(workdir, n)
+    else:
+        log("parallel: one card: the launches on a card other than the "
+            "current one (d) and the training CLI over several cards (e) "
+            "not run")
+    return out
+
+
 def _child_pids() -> list[int]:
     """The processes whose parent is this one, from ``/proc``."""
     me, pids = os.getpid(), []
@@ -2828,6 +3325,7 @@ def run() -> tuple[str, list[dict]]:
         timed("device_glue", phase_device_glue, dev)
         timed("train", phase_train, dev, card, wd)
         timed("tools", phase_tools, dev, card, wd)
+        timed("parallel", phase_parallel, dev, frames, wd)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -7,9 +7,11 @@ kernels and segmentation; its CSVs are the JAX daemon's byte for byte at
 device, or on the CPU with ``--cpu``; the device heartbeat's probe is a
 tiny op on the model's device followed by ``torch.cuda.synchronize``
 there; warmup runs the port's ``make_classify_step`` on a zero batch;
-JAX's start-up (its compile cache, its backend init and the mesh) is
-gone, and ``--data-parallel`` is refused at parse time (ROADMAP.md Queue
-1 item 5).
+JAX's start-up (its compile cache and its backend init) is gone.
+``--data-parallel`` shards each request's frame batches over every
+visible card (``parallel.make_mesh``; with one card, unsharded), one
+mesh shared by every request; a ``batch_size`` that does not divide over
+it is a 400 naming the division.
 
     python -m cut_detection_tpu_torch.cli.serve [--port 8571] \\
         [--precision ...] [--transfer {auto,bgr,yuv420}] [--cpu]
@@ -248,8 +250,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "at startup (warmup is on by default so the "
                         "first request doesn't pay the kernel build).")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Not ported yet (ROADMAP.md Queue 1 item 5); "
-                        "refused.")
+                   help="Shard each request's frame batches across all "
+                        "visible cards (one mesh for every request).  The "
+                        "loop stays bound by its host thread: this does "
+                        "not yet make a request faster than one card.")
     p.add_argument("--heartbeat-interval", type=float, default=60.0,
                    help="Seconds between device-liveness probes; "
                         "/healthz turns 503 when the device has not "
@@ -300,6 +304,7 @@ class _State:
         # request explicitly asks with {"warmup": true}).
         self.warmup_default = False
         self.nets = {}  # name -> GluedNet ("default" = self.net)
+        self.mesh = None  # data-parallel mesh shared by every request
         self.heartbeat: _DeviceHeartbeat | None = None
         self.device = torch.device("cpu")  # where every model runs
 
@@ -394,7 +399,7 @@ def _warmup_modes(state: "_State") -> list[str]:
 
 def _warmup_net(net, batch_size: int = 128,
                 resize_hw: tuple = (144, 256),
-                transfer: str = "bgr") -> float:
+                transfer: str = "bgr", mesh=None) -> float:
     """Build and run the serving-shape classify step on a zero batch on
     the net's device; returns seconds.
 
@@ -414,11 +419,11 @@ def _warmup_net(net, batch_size: int = 128,
         # step is memoized per yuv_dims).
         from cut_detection_tpu_torch.geometry import yuv420_nbytes
 
-        step = make_classify_step(net, yuv_dims=(h, w))
+        step = make_classify_step(net, yuv_dims=(h, w), mesh=mesh)
         frames = torch.zeros((batch_size, yuv420_nbytes(h, w)),
                              dtype=torch.uint8, device=net.device)
     else:
-        step = make_classify_step(net)
+        step = make_classify_step(net, mesh=mesh)
         frames = torch.zeros((batch_size, h, w, 3), dtype=torch.uint8,
                              device=net.device)
     conf, pred = step(frames)
@@ -620,7 +625,8 @@ def _make_handler(state: _State):
                     t1 = time.time()
                     out, seg, stats = segment_video_file(
                         input_path, output_path, net=net,
-                        print_every=0, preloaded=preloaded, **kwargs)
+                        print_every=0, preloaded=preloaded,
+                        mesh=state.mesh, **kwargs)
                 finally:
                     state.lock.release()
             finally:
@@ -736,7 +742,8 @@ def _make_handler(state: _State):
                 try:
                     for mode in _warmup_modes(state):
                         logger.info("Reload warmup (%s) took %.1fs", mode,
-                                    _warmup_net(net, transfer=mode))
+                                    _warmup_net(net, transfer=mode,
+                                                mesh=state.mesh))
                 except Exception:
                     logger.exception(
                         "reload warmup failed; swapping anyway (first "
@@ -864,9 +871,14 @@ def make_server(host: str, port: int, precision: str = "float32",
                 warmup: bool = False,
                 heartbeat_interval: float = 0.0,
                 transfer: str = "bgr",
-                device=None):
+                device=None,
+                mesh=None):
     """Build (server, state) with the model preloaded on ``device`` (the
     CUDA device by default: ``utils.device.resolve_device``).
+
+    ``mesh`` (``parallel.make_mesh``): every request's frame batches
+    split over its devices; a request whose ``batch_size`` does not
+    divide over them gets a 400.
 
     ``certfile``/``keyfile`` enable HTTPS; ``client_ca`` additionally
     demands client certificates signed by that CA (mTLS).  ``warmup``
@@ -924,6 +936,7 @@ def make_server(host: str, port: int, precision: str = "float32",
                 "--transfer yuv420 needs the native decoder with YUV "
                 "entry points (make -C native)")
     state.transfer = transfer
+    state.mesh = mesh
     state.net, _ = load_triplet_or_default(model_dir, model_name,
                                            state.device, precision)
     for nm, (mdir, mname) in (extra_models or {}).items():
@@ -954,7 +967,8 @@ def make_server(host: str, port: int, precision: str = "float32",
                 logger.info("Warming %r (%s): serving-shape step...",
                             nm, mode)
                 logger.info("Warmed %r (%s) in %.1fs", nm, mode,
-                            _warmup_net(net, transfer=mode))
+                            _warmup_net(net, transfer=mode,
+                                        mesh=state.mesh))
     return server, state
 
 
@@ -982,9 +996,6 @@ def _parse_model_flags(entries) -> dict:
 def main(args=None) -> None:
     parser = build_parser()
     ns = parser.parse_args(args)
-    if ns.data_parallel:
-        parser.error("--data-parallel: not yet ported, see ROADMAP.md "
-                     "Queue 1 item 5")
     setup_logging()
 
     from cut_detection_tpu_torch.utils.device import (
@@ -997,7 +1008,15 @@ def main(args=None) -> None:
     except RuntimeError as e:
         parser.error(str(e))
     strict_fp32()
-    logging.info("Using %s", device)
+    mesh = None
+    if ns.data_parallel and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        from cut_detection_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh()
+        device = mesh.devices[0]
+    logging.info("Using %s%s", device, "" if mesh is None else
+                 f", batches over {len(mesh.devices)} cards")
 
     server, _ = make_server(ns.host, ns.port, ns.precision,
                             model_dir=ns.model_dir, model_name=ns.model_name,
@@ -1011,7 +1030,8 @@ def main(args=None) -> None:
                             decode_ahead=not ns.no_decode_ahead,
                             warmup=not ns.no_warmup,
                             heartbeat_interval=ns.heartbeat_interval,
-                            transfer=ns.transfer, device=device)
+                            transfer=ns.transfer, device=device,
+                            mesh=mesh)
     logging.info("Serving on %s:%d", ns.host, ns.port)
     try:
         server.serve_forever()

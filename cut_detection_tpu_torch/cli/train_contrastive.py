@@ -21,10 +21,7 @@ import json
 import logging
 import os
 
-from cut_detection_tpu_torch.cli.train_supervised import (
-    refuse_data_parallel,
-    start,
-)
+from cut_detection_tpu_torch.cli.train_supervised import launch, start_rank
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "train/augment.py).")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--data-parallel", action="store_true",
-                   help="Shard batches over all local devices (one "
-                        "device: unsharded; several: not ported yet).")
+                   help="Shard batches over all local devices (one rank "
+                        "a card; one device: unsharded).")
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (otherwise a CUDA device is "
                         "required).")
@@ -66,9 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(args=None) -> None:
     parser = build_parser()
-    ns = parser.parse_args(args)
-    refuse_data_parallel(parser, ns)
-    device = start(parser, ns)
+    launch(parser, parser.parse_args(args), train)
+
+
+def train(ns, device, group) -> None:
+    """The CLI's work on ``device``, as one rank of ``group`` or alone."""
+    lead = start_rank(device, group)
 
     from cut_detection_tpu_torch.checkpoint.io import save_bundle
     from cut_detection_tpu_torch.config import ContrastiveConfig
@@ -96,7 +96,9 @@ def main(args=None) -> None:
     logging.info("Dataset size: %d frames", len(ds))
 
     result = train_contrastive(cfg, ds, device=device,
-                               num_workers=ns.num_workers)
+                               num_workers=ns.num_workers, group=group)
+    if not lead:
+        return
 
     # The conv net and the projection head (learn_contrasts.py:131-132),
     # and the sidecar that makes the pair loadable as an embedding net.

@@ -9,8 +9,10 @@ error.  ``--resume`` restores the latest ``train_state_*.npz`` in
 warm-starts the backbone from a contrastive ``{name}_conv.npz``;
 ``--export-torch`` also writes the reference's ``.pt`` state dicts.
 ``--data-parallel`` follows the JAX CLI's rule: with one visible device
-it trains unsharded; several devices are refused (ROADMAP Queue 1 item
-5).
+it trains unsharded; over several it trains one rank per card in a
+``torch.distributed`` group (``train.supervised``'s data-parallel loop),
+started here (``parallel.distributed.spawn``), or joined where torchrun
+started this process as one rank; rank 0 writes the outputs.
 
     python -m cut_detection_tpu_torch.cli.train_supervised \\
         --data-dirs FRAMES_DIR [...] [--precision {float32,bfloat16}] \\
@@ -68,43 +70,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Also write torch .pt state dicts for the "
                         "reference implementation.")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Shard batches over all local devices (one "
-                        "device: unsharded; several: not ported yet).")
+                   help="Shard batches over all local devices (one rank "
+                        "a card; one device: unsharded).")
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (otherwise a CUDA device is "
                         "required).")
     return p
 
 
-def refuse_data_parallel(parser, ns) -> None:
-    """The JAX CLIs shard only over more than one device; the port has no
-    sharded loop yet, so several visible cards are refused here."""
-    if not ns.data_parallel or ns.cpu:
-        return
-    import torch
+def launch(parser, ns, train) -> None:
+    """``train(ns, device, group)``: once per rank under
+    ``--data-parallel`` over several devices
+    (``parallel.distributed.run_ranks``; each rank sets up its own logging
+    and float32), else once here, on the device ``--cpu`` asks for (an
+    error without a card unless ``--cpu``), unsharded, as the JAX CLIs
+    train on one device."""
+    if ns.data_parallel:
+        from cut_detection_tpu_torch.parallel.distributed import run_ranks
 
-    if torch.cuda.device_count() > 1:
-        parser.error("--data-parallel over several devices is not ported "
-                     "yet (ROADMAP.md Queue 1 item 5); make one device "
-                     "visible (CUDA_VISIBLE_DEVICES) to train unsharded")
-
-
-def start(parser, ns):
-    """Logging, the device (an error without a card unless ``--cpu``) and
-    float32 kept out of TF32."""
-    setup_logging()
-    from cut_detection_tpu_torch.utils.device import (
-        resolve_device,
-        strict_fp32,
-    )
+        if run_ranks(train, ns, cpu=ns.cpu):
+            return
+    from cut_detection_tpu_torch.utils.device import resolve_device
 
     try:
         device = resolve_device(cpu=ns.cpu)
     except RuntimeError as e:
         parser.error(str(e))
+    train(ns, device, None)
+
+
+def start_rank(device, group) -> bool:
+    """A rank's set-up: logging, float32 kept out of TF32; returns
+    whether this process writes the outputs (rank 0, or no group)."""
+    import torch.distributed as dist
+
+    from cut_detection_tpu_torch.utils.device import strict_fp32
+
+    setup_logging()
     strict_fp32()
-    logging.info("Using %s", device)
-    return device
+    logging.info("Using %s%s", device, "" if group is None else
+                 f" (rank {dist.get_rank(group)} of "
+                 f"{dist.get_world_size(group)})")
+    return group is None or dist.get_rank(group) == 0
 
 
 def load_conv_net(net, path: str) -> None:
@@ -122,9 +129,12 @@ def load_conv_net(net, path: str) -> None:
 
 def main(args=None) -> None:
     parser = build_parser()
-    ns = parser.parse_args(args)
-    refuse_data_parallel(parser, ns)
-    device = start(parser, ns)
+    launch(parser, parser.parse_args(args), train)
+
+
+def train(ns, device, group) -> None:
+    """The CLI's work on ``device``, as one rank of ``group`` or alone."""
+    lead = start_rank(device, group)
 
     import torch
 
@@ -195,11 +205,12 @@ def main(args=None) -> None:
     result = train_supervised(cfg, datasets, device=device,
                               num_workers=ns.num_workers, state=state,
                               checkpoint_dir=cfg.model_dir,
-                              start_epoch=start_epoch)
+                              start_epoch=start_epoch, group=group)
 
-    save_model_triplet(cfg.model_dir, cfg.model_name, result["state"], cfg,
-                       export_torch=ns.export_torch)
-    logging.info("Saved model triplet to %s", cfg.model_dir)
+    if lead:
+        save_model_triplet(cfg.model_dir, cfg.model_name, result["state"],
+                           cfg, export_torch=ns.export_torch)
+        logging.info("Saved model triplet to %s", cfg.model_dir)
 
 
 if __name__ == "__main__":

@@ -30,13 +30,17 @@ def _collate(items: list[dict]) -> dict:
 
 def iter_batches(dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, seed: int | None = None,
-                 indices=None, num_workers: int = 0):
+                 indices=None, num_workers: int = 0,
+                 shard: tuple[int, int] | None = None):
     """Yield collated dict batches from an indexable dataset.
 
     ``indices`` restricts/reorders the dataset (torch ``Subset`` analog,
     supervised_training.py:75-76); ``shuffle`` permutes them with
     ``np.random.default_rng(seed)``, so a seed gives the JAX package's
-    batch order.
+    batch order.  ``shard=(rank, ranks)`` loads only that rank's rows of
+    each batch, ``[rank n / ranks, (rank + 1) n / ranks)`` of its ``n``,
+    which must divide (a data-parallel rank's share; the port's own
+    addition).
     """
     if indices is None:
         indices = np.arange(len(dataset))
@@ -50,12 +54,22 @@ def iter_batches(dataset, batch_size: int, *, shuffle: bool = False,
     def load(i):
         return dataset[int(i)]
 
+    def rows(chunk):
+        if shard is None:
+            return chunk
+        rank, ranks = shard
+        if len(chunk) % ranks:
+            raise ValueError(f"a batch of {len(chunk)} does not divide "
+                             f"over {ranks} ranks")
+        return chunk[rank * len(chunk) // ranks:
+                     (rank + 1) * len(chunk) // ranks]
+
     if num_workers <= 0:
         for s in range(0, n, batch_size):
             chunk = indices[s: s + batch_size]
             if drop_last and len(chunk) < batch_size:
                 break
-            yield _collate([load(i) for i in chunk])
+            yield _collate([load(i) for i in rows(chunk)])
         return
 
     with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
@@ -63,7 +77,7 @@ def iter_batches(dataset, batch_size: int, *, shuffle: bool = False,
             chunk = indices[s: s + batch_size]
             if drop_last and len(chunk) < batch_size:
                 break
-            yield _collate(list(pool.map(load, chunk)))
+            yield _collate(list(pool.map(load, rows(chunk))))
 
 
 class PrefetchLoader:

@@ -105,6 +105,11 @@ class GluedNet(nn.Module):
         for block in (*self.conv.conv_layers, *self.linear.layers):
             block.init_weights(generator)
 
+    def set_process_group(self, group) -> None:
+        """Train-mode BN statistics over ``group``'s global batch (a
+        ``torch.distributed`` group; None: this process's batch)."""
+        self.conv.process_group = self.linear.process_group = group
+
     @torch.no_grad()
     def apply_bn_stats(self) -> None:
         """Write the BN running statistics that the last train forward

@@ -14,7 +14,8 @@ In train mode (``.train()``) each net runs its blocks' ``forward_train``
 and records their new BN running statistics in ``bn_stats``, keyed by
 block index, for ``GluedNet.apply_bn_stats``: a forward run twice on
 the same input (rematerialized) records the same values, and the
-statistics move once a step.
+statistics move once a step.  A ``process_group`` (``GluedNet.
+set_process_group``) makes those statistics the group's global batch's.
 
 - ``FrameConvNet``: N conv blocks (in_ch -> hidden, then hidden ->
   hidden), adaptive average pooling, and a flatten in NCHW order so the
@@ -54,6 +55,7 @@ class FrameConvNet(nn.Module):
             for k, (i, o) in enumerate(zip(chans[:-1], chans[1:])))
         self.compute_dtype = compute_dtype
         self.bn_stats: dict[int, tuple] = {}
+        self.process_group = None
 
     def forward(self, x: torch.Tensor, rings=None) -> torch.Tensor:
         """``rings``: the ``uint8_chain`` or ``int8_mxu`` blocks' constant
@@ -63,7 +65,8 @@ class FrameConvNet(nn.Module):
             if rings is not None:
                 raise ValueError("rings are for the eval forward")
             for i, layer in enumerate(self.conv_layers):
-                x, self.bn_stats[i] = layer.forward_train(x)
+                x, self.bn_stats[i] = layer.forward_train(
+                    x, self.process_group)
         elif self.compute_dtype in CHAIN_RUNGS:
             if rings is None:
                 rings = [None] * len(self.conv_layers)
@@ -101,11 +104,12 @@ class FrameLinearNet(nn.Module):
             FCBlock(i, o, hidden=k != last, compute_dtype=compute_dtype)
             for k, (i, o) in enumerate(sizes))
         self.bn_stats: dict[int, tuple] = {}
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
             if self.training:
-                x, stats = layer.forward_train(x)
+                x, stats = layer.forward_train(x, self.process_group)
                 if stats is not None:  # the last layer has no BN
                     self.bn_stats[i] = stats
             else:

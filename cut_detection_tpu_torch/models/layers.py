@@ -336,11 +336,13 @@ class ConvBlock(nn.Module):
         _init_uniform(self.conv.bias, fan_in, generator)
         _init_bn(self.bn)
 
-    def forward_train(self, x: torch.Tensor):
+    def forward_train(self, x: torch.Tensor, group=None):
         """conv -> ReLU -> maxpool 3/3 -> train BN, differentiable
         (``apply_conv_block(train=True)``).  Returns ``(y, (new running
         mean, new running var))``; the statistics are not written.  A
-        frozen block is an inference copy and refuses."""
+        frozen block is an inference copy and refuses.  With a process
+        ``group`` the BN statistics are the group's global batch's
+        (``ops.nn.batch_norm_train``)."""
         if self._frozen is not None:
             raise RuntimeError("this block was frozen for inference "
                                "(freeze()); train an unfrozen copy")
@@ -350,7 +352,7 @@ class ConvBlock(nn.Module):
         z = max_pool(torch.relu(z), POOL_WINDOW)
         bn = self.bn
         y, mean, var = batch_norm_train(z, bn.running_mean, bn.running_var,
-                                        bn.weight, bn.bias)
+                                        bn.weight, bn.bias, group=group)
         return y, (mean, var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -392,10 +394,11 @@ class FCBlock(nn.Module):
         if self.bn is not None:
             _init_bn(self.bn)
 
-    def forward_train(self, x: torch.Tensor):
+    def forward_train(self, x: torch.Tensor, group=None):
         """Hidden: linear -> ReLU -> train BN; final: linear alone
         (``apply_fc_block(train=True)``).  Returns ``(y, (new running
-        mean, new running var))``, or ``(y, None)`` without BN."""
+        mean, new running var))``, or ``(y, None)`` without BN; ``group``
+        as in ``ConvBlock.forward_train``."""
         _check_train_dtype(self.compute_dtype)
         x = linear(x, self.linear.weight.t(), self.linear.bias,
                    compute_dtype=self.compute_dtype)
@@ -403,7 +406,8 @@ class FCBlock(nn.Module):
             return x, None
         bn = self.bn
         y, mean, var = batch_norm_train(torch.relu(x), bn.running_mean,
-                                        bn.running_var, bn.weight, bn.bias)
+                                        bn.running_var, bn.weight, bn.bias,
+                                        group=group)
         return y, (mean, var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

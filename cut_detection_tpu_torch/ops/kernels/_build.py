@@ -7,7 +7,8 @@ source, all started together, then one link.  The build is keyed
 on a hash of the sources and the flags: a stale library is rebuilt, a
 current one is loaded as it is.  The library is bound with ``ctypes``:
 each entry point takes its pointers and the CUDA stream as ``c_void_p``
-and returns ``cudaGetLastError()`` after its launch.
+and returns ``cudaGetLastError()`` after its launch.  ``launch`` calls
+one with its tensors' device current, on that device's stream.
 
 Nothing here runs when the module is imported; a missing ``nvcc``, a
 failed build or a failed load raises.
@@ -193,6 +194,18 @@ def library() -> ctypes.CDLL:
             lib.cutdet_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``: a C entry point launched on ``device``'s
+    current stream with ``device`` made the CUDA runtime's current device
+    for the call (what ``c10::cuda::CUDAGuard`` does in C++), since the
+    entry points read the SM count, set their shared-memory opt-in and
+    launch on the current device.  Returns the entry point's code."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def expect(t, name: str, dtype, shape: tuple, device) -> None:

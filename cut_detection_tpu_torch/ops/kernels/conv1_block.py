@@ -119,9 +119,9 @@ def conv1_block(x_u8, kernel, bias, scale, offset, *, compute_dtype=None,
         return out
     fn = getattr(_build.library(), "cutdet_conv1_block" if name == "f32"
                  else f"cutdet_conv1_block_{name}")
-    rc = fn(x_u8.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w,
-            cout, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(fn, dev, x_u8.data_ptr(), kernel.data_ptr(),
+                       bias.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                       out.data_ptr(), b, h, w, cout)
     _build.check(rc, "conv1_block launch")
     conv1_block.launches += 1
     conv1_block.instance_launches[name] += 1

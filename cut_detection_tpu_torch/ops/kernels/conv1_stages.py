@@ -332,9 +332,9 @@ def conv1_stages(x: torch.Tensor, w2t: torch.Tensor,
                          "16-byte aligned")
     out = torch.empty((b, OUT, OUT), dtype=torch.float32, device=dev)
     sink = torch.empty((b,), dtype=torch.float32, device=dev)
-    rc = _build.library().cutdet_conv1_stages(
-        STAGES.index(stage), x.data_ptr(), w2t.data_ptr(), out.data_ptr(),
-        sink.data_ptr(), b, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(_build.library().cutdet_conv1_stages, dev,
+                       STAGES.index(stage), x.data_ptr(), w2t.data_ptr(),
+                       out.data_ptr(), sink.data_ptr(), b)
     _build.check(rc, f"conv1_stages[{stage}] launch")
     conv1_stages.launches += 1
     conv1_stages.instance_launches[stage] += 1

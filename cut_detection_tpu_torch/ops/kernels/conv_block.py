@@ -173,9 +173,9 @@ def _launch(name, x, kernel, bias, scale, offset, dtype, out_dtype, b, h, w,
     if b == 0:
         return out
     fn = getattr(_build.library(), f"cutdet_conv_block_{name}")
-    rc = fn(x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w,
-            cin, cout, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(fn, dev, x.data_ptr(), kernel.data_ptr(),
+                       bias.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                       out.data_ptr(), b, h, w, cin, cout)
     _build.check(rc, "conv_block launch")
     conv_block.launches += 1
     conv_block.instance_launches[name] += 1

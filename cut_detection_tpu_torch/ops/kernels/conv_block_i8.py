@@ -117,14 +117,13 @@ def _launch(entry, x, kernel, so, ring, scale, *, cin_words: bool):
         if t.data_ptr() % align:
             raise ValueError(f"{entry}: {pname} must be {align}-byte "
                              "aligned")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     args = (x.data_ptr(), kernel.data_ptr(), so.data_ptr(), ring.data_ptr(),
             scale.data_ptr(), out.data_ptr(), b, h, w)
     lib = _build.library()
     if cin_words:
-        rc = lib.cutdet_conv_block_i8(*args, cin, cout, stream)
+        rc = _build.launch(lib.cutdet_conv_block_i8, dev, *args, cin, cout)
     else:
-        rc = lib.cutdet_conv1_block_i8(*args, cout, stream)
+        rc = _build.launch(lib.cutdet_conv1_block_i8, dev, *args, cout)
     _build.check(rc, f"{entry} launch")
     return out, True
 

@@ -114,10 +114,10 @@ def resize_normalize(frames_u8: torch.Tensor, out_h: int,
         return out
     row_idx, row_w, col_idx, col_w = _taps(h, w, out_h, out_w, dev)
     lib = _build.library()
-    rc = lib.cutdet_resize_normalize(
-        frames_u8.data_ptr(), row_idx.data_ptr(), row_w.data_ptr(),
-        col_idx.data_ptr(), col_w.data_ptr(), out.data_ptr(), b, h, w,
-        out_h, out_w, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(
+        lib.cutdet_resize_normalize, dev, frames_u8.data_ptr(),
+        row_idx.data_ptr(), row_w.data_ptr(), col_idx.data_ptr(),
+        col_w.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w)
     _build.check(rc, "resize_normalize launch")
     resize_normalize.launches += 1
     return out

@@ -60,9 +60,8 @@ def yuv420_to_bgr(yuv_flat: torch.Tensor, h: int, w: int) -> torch.Tensor:
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=dev)
     if b == 0:
         return out
-    rc = _build.library().cutdet_yuv420_to_bgr(
-        yuv_flat.data_ptr(), out.data_ptr(), b, h, w,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(_build.library().cutdet_yuv420_to_bgr, dev,
+                       yuv_flat.data_ptr(), out.data_ptr(), b, h, w)
     _build.check(rc, "yuv420_to_bgr launch")
     yuv420_to_bgr.launches += 1
     return out

@@ -148,7 +148,8 @@ def batch_norm_infer(x, mean, var, gamma, beta, eps: float = BN_EPS):
 
 
 def batch_norm_train(x, mean_running, var_running, gamma, beta,
-                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
+                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM,
+                     group=None):
     """Train-mode batch norm (``cut_detection_tpu/ops/nn.py:217-245``);
     returns ``(y, new_running_mean, new_running_var)`` and writes nothing
     in place.
@@ -163,12 +164,33 @@ def batch_norm_train(x, mean_running, var_running, gamma, beta,
     refuses a batch of one row (the FC head's tail batch), and cuDNN's
     kernel sums in an order of its own.  The new statistics carry no
     gradient.
+
+    With a ``torch.distributed`` ``group`` the statistics are those of the
+    group's global batch, as the JAX package's sharded step computes them:
+    the per-channel sums are all-reduced, then the centred sums of
+    squares, in the same two passes (``parallel.distributed.
+    all_reduce_sum``, through which the gradient flows to every rank's
+    rows).  Every rank holds an equal share (``train.supervised.
+    rank_rows``), so the global count, which the means and the Bessel
+    correction take, is the local count times the group's size.
     """
     dims = tuple(range(x.dim() - 1))
     count = x.numel() // x.shape[-1]
     xf = x.float()
-    batch_mean = xf.mean(dim=dims)
-    batch_var = (xf - batch_mean).square().mean(dim=dims)  # biased
+    if group is None:
+        batch_mean = xf.mean(dim=dims)
+        batch_var = (xf - batch_mean).square().mean(dim=dims)  # biased
+    else:
+        import torch.distributed as dist
+
+        from cut_detection_tpu_torch.parallel.distributed import (
+            all_reduce_sum,
+        )
+
+        count *= dist.get_world_size(group)
+        batch_mean = all_reduce_sum(xf.sum(dim=dims), group) / count
+        batch_var = all_reduce_sum(
+            (xf - batch_mean).square().sum(dim=dims), group) / count
     y = (xf - batch_mean) * torch.rsqrt(batch_var + eps) \
         * gamma.float() + beta.float()
     correction = count / max(count - 1, 1)

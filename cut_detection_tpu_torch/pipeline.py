@@ -92,26 +92,63 @@ PREFETCH_BATCHES = 2
 _STEP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def frozen_copy(net: GluedNet, *, fold: bool = True) -> GluedNet:
-    """A private copy of ``net`` on its device with its kernel arguments
-    computed once (``ConvBlock.freeze``); with ``fold``, the BGR flip and
-    /255 folded into layer 1 (``fold_preprocess``), so that it takes raw
-    uint8 BGR frames (``folded_input``)."""
+def frozen_copy(net: GluedNet, *, fold: bool = True,
+                device: torch.device | None = None) -> GluedNet:
+    """A private copy of ``net`` on ``device`` (default: the net's) with
+    its kernel arguments computed once (``ConvBlock.freeze``); with
+    ``fold``, the BGR flip and /255 folded into layer 1
+    (``fold_preprocess``), so that it takes raw uint8 BGR frames
+    (``folded_input``)."""
     frozen = GluedNet(net.model_params, net.precision)
     state = net.state_dict()
     frozen.load_state_dict(fold_preprocess(state) if fold else state)
-    frozen.to(net.device)
+    frozen.to(net.device if device is None else device)
     for layer in frozen.conv.conv_layers:
         layer.freeze()
     return frozen
 
 
+def device_step(frozen: GluedNet, *, fold: bool,
+                device_resize: tuple[int, int] | None = None,
+                pallas_preprocess: bool = False,
+                yuv_dims: tuple[int, int] | None = None):
+    """The step on one device over a :func:`frozen_copy` (folded or not,
+    as ``fold`` says); see :func:`make_classify_step`."""
+    ring_cache: dict = {}
+
+    @torch.inference_mode()
+    def step(frames_u8: torch.Tensor):
+        x = frames_u8
+        if yuv_dims is not None:
+            x = yuv420_to_bgr(x.contiguous(), *yuv_dims)
+        if device_resize is not None and pallas_preprocess:
+            x = resize_normalize(x.contiguous(), *device_resize)
+        else:
+            if device_resize is not None:
+                x = resize_bilinear(x, *device_resize, exact=True)
+            x = folded_input(x) if fold else normalize_frames(x)
+        hw = tuple(x.shape[1:3])
+        if hw not in ring_cache:
+            ring_cache[hw] = precompute_rings(frozen, *hw, fold=fold)
+        logits = frozen(x, ring_cache[hw])
+        return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
+
+    return step
+
+
 def make_classify_step(net: GluedNet, *,
                        device_resize: tuple[int, int] | None = None,
                        pallas_preprocess: bool = False,
-                       yuv_dims: tuple[int, int] | None = None):
+                       yuv_dims: tuple[int, int] | None = None,
+                       mesh=None):
     """The device step: uint8 NHWC BGR ``[B, H, W, 3]`` on ``net.device``
     -> ``(conf f32 [B], pred int32 [B])`` on the same device.
+
+    With ``mesh`` (``parallel.make_mesh``) each batch, on the host or any
+    device, splits over the mesh's devices, each running this step on a
+    replica of its own (``parallel.sharding.sharded``), and the outputs
+    come back to the mesh's first device in frame order; ``B`` must
+    divide over the mesh.
 
     ``yuv_dims=(h, w)``: the frames are packed planar YUV420 vectors
     ``[B, yuv420_nbytes(h, w)]`` at model resolution, converted to BGR
@@ -147,32 +184,24 @@ def make_classify_step(net: GluedNet, *,
         device_resize = tuple(int(d) for d in device_resize)
     if yuv_dims is not None:
         yuv_dims = tuple(int(d) for d in yuv_dims)
-    key = (device_resize, bool(pallas_preprocess), yuv_dims)
+    key = (device_resize, bool(pallas_preprocess), yuv_dims, mesh)
     per_net = _STEP_CACHE.get(net)
     if per_net is not None and key in per_net:
         return per_net[key]
     fold = not pallas_preprocess
+    opts = dict(fold=fold, device_resize=device_resize,
+                pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims)
     # The step must not hold a strong reference to its own weak key.
-    frozen = frozen_copy(net, fold=fold)
-    ring_cache: dict = {}
+    if mesh is None:
+        step = device_step(frozen_copy(net, fold=fold), **opts)
+    else:
+        from cut_detection_tpu_torch.parallel.sharding import (
+            replicate,
+            sharded,
+        )
 
-    @torch.inference_mode()
-    def step(frames_u8: torch.Tensor):
-        x = frames_u8
-        if yuv_dims is not None:
-            x = yuv420_to_bgr(x.contiguous(), *yuv_dims)
-        if device_resize is not None and pallas_preprocess:
-            x = resize_normalize(x.contiguous(), *device_resize)
-        else:
-            if device_resize is not None:
-                x = resize_bilinear(x, *device_resize, exact=True)
-            x = folded_input(x) if fold else normalize_frames(x)
-        hw = tuple(x.shape[1:3])
-        if hw not in ring_cache:
-            ring_cache[hw] = precompute_rings(frozen, *hw, fold=fold)
-        logits = frozen(x, ring_cache[hw])
-        return logits.amax(dim=1), logits.argmax(dim=1).to(torch.int32)
-
+        step = sharded(mesh, [device_step(c, **opts)
+                              for c in replicate(mesh, net, fold=fold)])
     _STEP_CACHE.setdefault(net, {})[key] = step
     return step
 
@@ -370,6 +399,7 @@ def classify_video(
     pallas_preprocess: bool = False,
     precision: str = "float32",
     preloaded: PreloadedDecode | None = None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """Decode + classify; return per-frame ``(conf, pred, stats)``.
 
@@ -396,8 +426,16 @@ def classify_video(
     built at this ``batch_size`` and the resize of 256, and takes neither
     an on-device preprocess nor yuv420 ("auto" resolves to bgr with it).
     This call owns it: it is closed on every path, error paths included.
+
+    ``mesh`` (``parallel.make_mesh``): each batch splits over the mesh's
+    devices (:func:`make_classify_step`); ``batch_size`` must divide over
+    them, which is checked before any decode starts.
     """
     try:
+        if mesh is not None and batch_size % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size={batch_size} must divide over the data axis "
+                f"({mesh.shape['data']} shards)")
         if cache_path and os.path.isfile(cache_path):
             cached = _load_cached(cache_path, frame_limit, batch_size)
             if cached is not None:
@@ -409,7 +447,8 @@ def classify_video(
                 raise ValueError("classify_video needs a net or a device")
             net, _ = load_default_net(device, precision)
             logger.info("Loaded default classifier (%s).", precision)
-        device = net.device
+        devices = mesh.devices if mesh is not None else (net.device,)
+        device = devices[0]
 
         on_device_preprocess = device_resize or pallas_preprocess
         if transfer == "yuv420" and on_device_preprocess:
@@ -445,12 +484,14 @@ def classify_video(
 
             # On the CPU, torch.from_numpy would alias a ring slot that the
             # decoder recycles, so take copies.  On CUDA the synchronous
-            # host->device copy has left the slot when it returns.
+            # host->device copy (of each shard, under a mesh) has left the
+            # slot when it returns.
             source = ShmDecodeLoader(
                 input_path, batch_size=batch_size, resize=resize,
                 decode_workers=decode_workers,
                 decode_chunk_frames=DECODE_CHUNK_FRAMES, decoder=decoder,
-                copy_out=device.type == "cpu", transfer=transfer)
+                copy_out=any(d.type == "cpu" for d in devices),
+                transfer=transfer)
             batches = source
         else:
             from cut_detection_tpu_torch.data.loader import PrefetchLoader
@@ -471,7 +512,7 @@ def classify_video(
             batches, net, batch_size=batch_size,
             length=int(source.video_info["length"]), frame_limit=frame_limit,
             print_every=print_every, device_resize=dr,
-            pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims)
+            pallas_preprocess=pallas_preprocess, yuv_dims=yuv_dims, mesh=mesh)
         stats.decode_failures = getattr(source, "frames_failed", 0)
 
         if cache_path:
@@ -495,6 +536,7 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
                      device_resize: tuple[int, int] | None = None,
                      pallas_preprocess: bool = False,
                      yuv_dims: tuple[int, int] | None = None,
+                     mesh=None,
                      ) -> tuple[np.ndarray, np.ndarray, PipelineStats]:
     """The device loop of :func:`classify_video` over decoded batches.
 
@@ -503,11 +545,12 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     w)]`` planes with ``yuv_dims=(h, w)``); ``length`` (the expected
     frame count) sizes the device score buffer.  The batches' ``close()``,
     when they have one, runs on exit.  ``device_resize``,
-    ``pallas_preprocess`` and ``yuv_dims`` choose the step
-    (:func:`make_classify_step`), which runs at ``net.precision``.
-    Returns the valid frames' ``(conf, pred, stats)``.
+    ``pallas_preprocess``, ``yuv_dims`` and ``mesh`` choose the step
+    (:func:`make_classify_step`), which runs at ``net.precision``.  The
+    device score buffer lives on the net's device, or on the mesh's
+    first.  Returns the valid frames' ``(conf, pred, stats)``.
     """
-    device = net.device
+    device = net.device if mesh is None else mesh.devices[0]
     meter = ThroughputMeter(warmup_items=batch_size)
     meter.start()
     valids: list[int] = []
@@ -515,7 +558,7 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
     try:
         step = make_classify_step(net, device_resize=device_resize,
                                   pallas_preprocess=pallas_preprocess,
-                                  yuv_dims=yuv_dims)
+                                  yuv_dims=yuv_dims, mesh=mesh)
         # One score buffer on the device, sized from the expected frame
         # count (doubled whenever a container under-reports it).
         n_batches = max(1, -(-length // batch_size))
@@ -530,7 +573,9 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
             if hi > conf_buf.shape[0]:
                 conf_buf = torch.cat([conf_buf, torch.empty_like(conf_buf)])
                 pred_buf = torch.cat([pred_buf, torch.empty_like(pred_buf)])
-            conf, pred = step(torch.from_numpy(batch).to(device))
+            # Under a mesh the step uploads each shard to its device.
+            x = torch.from_numpy(batch)
+            conf, pred = step(x if mesh is not None else x.to(device))
             conf_buf[lo:hi] = conf
             pred_buf[lo:hi] = pred
             valids.append(valid)
@@ -629,6 +674,7 @@ def segment_video_file(
     precision: str = "float32",
     device_glue: bool = False,
     preloaded: PreloadedDecode | None = None,
+    mesh=None,
 ) -> tuple[str, Segmentation, PipelineStats]:
     """Full pipeline to CSV; returns ``(csv_path, segmentation, stats)``.
 
@@ -637,8 +683,9 @@ def segment_video_file(
     applies when the default net is loaded here (see
     :func:`classify_video`).  ``device_glue`` runs the smoother on the
     net's device (``segmentation.device_glue``), with the same result as
-    the host loops.  ``preloaded``: see :func:`classify_video`; closed
-    here too where this call fails before handing it on.
+    the host loops.  ``preloaded`` and ``mesh``: see
+    :func:`classify_video`; ``preloaded`` is closed here too where this
+    call fails before handing it on.
     """
     if not os.path.isfile(input_path):
         if preloaded is not None:
@@ -650,17 +697,22 @@ def segment_video_file(
         decode_workers=decode_workers, cache_path=cache_path,
         decoder=decoder, decode_process=decode_process, transfer=transfer,
         device_resize=device_resize, pallas_preprocess=pallas_preprocess,
-        precision=precision, preloaded=preloaded)
+        precision=precision, preloaded=preloaded, mesh=mesh)
     glue_device = None
     if device_glue:
         glue_device = net.device if net is not None else torch.device(device)
     seg = _smooth(conf, pred, base_threshold, blank_threshold,
                   device=glue_device)
     if output_path is None:
-        output_path = os.path.splitext(input_path)[0] + "_segments.csv"
+        output_path = default_output_path(input_path)
     logger.info("Writing %d segments to %s", len(seg), output_path)
     seg.write_csv(output_path)
     return output_path, seg, stats
+
+
+def default_output_path(input_path: str) -> str:
+    """Where a video's CSV goes by default: its stem + ``_segments.csv``."""
+    return os.path.splitext(input_path)[0] + "_segments.csv"
 
 
 def segment_many(
@@ -674,7 +726,8 @@ def segment_many(
     **kwargs,
 ) -> list[tuple[str, Segmentation, PipelineStats]]:
     """Segment several videos with one loaded model and one step (JAX
-    ``pipeline.py:755``, without its ``mesh``).
+    ``pipeline.py:755``); ``mesh`` in ``kwargs`` shards every video's
+    batches over it (:func:`classify_video`).
 
     Every video runs :func:`segment_video_file` with ``kwargs`` on the
     same net (``net``, or the default net loaded here on ``device`` at
@@ -699,8 +752,9 @@ def segment_many(
     on_device_preprocess = bool(kwargs.get("device_resize")
                                 or kwargs.get("pallas_preprocess"))
     if kwargs.get("transfer", "auto") == "auto":
+        mesh = kwargs.get("mesh")
         kwargs["transfer"] = resolve_transfer(
-            "auto", device=net.device,
+            "auto", device=net.device if mesh is None else mesh.devices[0],
             on_device_preprocess=on_device_preprocess)
     can_pre = pipeline_decode and not (on_device_preprocess
                                        or kwargs["transfer"] == "yuv420")

@@ -29,34 +29,42 @@ def cross_entropy_sum(logits, labels) -> torch.Tensor:
     return -logprobs.gather(-1, labels.long()[:, None])[:, 0].sum()
 
 
-def _ce_mean(logits, labels):
+def _ce_sum(logits, labels):
     logprobs = torch.log_softmax(logits, dim=-1)
-    return -logprobs.gather(-1, labels[:, None])[:, 0].mean()
+    return -logprobs.gather(-1, labels[:, None])[:, 0].sum()
 
 
-def ntxent_loss(x, *, temperature: float = 1.0, h_norm: bool = True):
+def ntxent_loss(x, *, temperature: float = 1.0, h_norm: bool = True,
+                rows: slice | None = None):
     """NT-Xent over concatenated views ``x = [h1; h2]`` of shape [2B, D].
 
     Returns ``(loss, logits_ab, labels)`` like the reference module's
     forward: ``loss_a + loss_b``, each the mean cross entropy between a
     view's similarities to [other view | own view, diagonal masked] and
     the aligned-index labels.
+
+    ``rows`` (a slice of ``range(B)``, default all): only those rows'
+    terms of the two means, still divided by ``B``, with ``logits_ab`` and
+    ``labels`` of those rows.  A data-parallel rank passes its rows of the
+    gathered global batch, so that the ranks' losses sum to the global
+    loss.
     """
     x = x.float()
     if h_norm:
         x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     b = x.shape[0] // 2
+    rows = slice(0, b) if rows is None else rows
     h1, h2 = x[:b], x[b:]
-    masks = torch.eye(b, dtype=x.dtype, device=x.device)
-    labels = torch.arange(b, device=x.device)
+    masks = torch.eye(b, dtype=x.dtype, device=x.device)[rows]
+    labels = torch.arange(b, device=x.device)[rows]
 
-    logits_aa = h1 @ h1.T / temperature - masks * BIG_NUMBER
-    logits_bb = h2 @ h2.T / temperature - masks * BIG_NUMBER
-    logits_ab = h1 @ h2.T / temperature
-    logits_ba = logits_ab.T
+    logits_aa = h1[rows] @ h1.T / temperature - masks * BIG_NUMBER
+    logits_bb = h2[rows] @ h2.T / temperature - masks * BIG_NUMBER
+    logits_ab = h1[rows] @ h2.T / temperature
+    logits_ba = h2[rows] @ h1.T / temperature
 
-    loss_a = _ce_mean(torch.cat([logits_ab, logits_aa], dim=-1), labels)
-    loss_b = _ce_mean(torch.cat([logits_ba, logits_bb], dim=-1), labels)
+    loss_a = _ce_sum(torch.cat([logits_ab, logits_aa], dim=-1), labels) / b
+    loss_b = _ce_sum(torch.cat([logits_ba, logits_bb], dim=-1), labels) / b
     return loss_a + loss_b, logits_ab, labels
 
 

@@ -21,6 +21,16 @@ contract with f32 islands for BN and the loss; parameters, gradients and
 optimizer state stay f32.  ``remat`` recomputes the conv forward during
 the backward (``torch.utils.checkpoint``), which moves the BN statistics
 once all the same.
+
+Under a ``torch.distributed`` group (``group``; one rank per card, see
+``parallel.distributed``) the steps are JAX's sharded steps
+(``jit_steps(cfg, mesh)``): every rank reads the same seeded batches and
+takes its rows of each (``rank_rows``); the BN statistics are the global
+batch's, each rank's summed loss flows through them, the gradients are
+SUM-all-reduced, and every rank takes the same optimizer step.  The loop
+then drops the tail train batch, as JAX's does under a mesh, computes an
+indivisible validation tail whole on every rank and counts it once, and
+leaves the logs and snapshots to rank 0.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from cut_detection_tpu_torch.config import ModelParams, TrainConfig
@@ -120,21 +131,44 @@ def _to(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
-def optimizer_step(state: TrainState, loss: torch.Tensor) -> None:
-    """Backward, the optimizer, then the BN statistics the forward
-    recorded (once, however often the forward ran)."""
+def rank_rows(n: int, group) -> slice:
+    """This rank's rows of a global batch of ``n``: ``[r n / N, (r + 1) n
+    / N)`` for rank r of N (all of them without a group).  Raises where
+    ``n`` does not divide over the ranks."""
+    if group is None:
+        return slice(0, n)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n % world:
+        raise ValueError(f"batch of {n} must divide over the data axis "
+                         f"({world} ranks)")
+    return slice(rank * n // world, (rank + 1) * n // world)
+
+
+def optimizer_step(state: TrainState, loss: torch.Tensor,
+                   group=None) -> None:
+    """Backward, the gradients SUM-all-reduced over ``group``, the
+    optimizer, then the BN statistics the forward recorded (once, however
+    often the forward ran)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is not None:
+        from cut_detection_tpu_torch.parallel.distributed import (
+            all_reduce_grads,
+        )
+
+        all_reduce_grads(state.net.parameters(), group)
     state.optimizer.step()
     state.net.apply_bn_stats()
     state.step += 1
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, group=None):
     """``step(state, x_u8, y) -> (state, metrics)``; ``x_u8``: [B, H, W, 3]
     uint8 RGB frames (divided by 255 on the net's device), ``y``: [B]
     labels.  ``metrics``: the summed ``loss``, the ``correct`` count (both
-    0-dim tensors on the device) and ``n``."""
+    0-dim tensors on the device) and ``n``.  Under ``group`` the frames are
+    this rank's rows of the global batch (``rank_rows``) and the metrics
+    the global batch's."""
     train_precision(cfg)
 
     def forward(net, x):
@@ -147,14 +181,21 @@ def make_train_step(cfg: TrainConfig):
     def step(state: TrainState, x_u8, y):
         net = state.net
         net.train()
+        net.set_process_group(group)
         x = to_unit(_to(x_u8, net.device))
         y = _to(y, net.device, torch.long)
         logits = forward(net, x)
         loss = cross_entropy_sum(logits, y)
-        optimizer_step(state, loss)
+        optimizer_step(state, loss, group)
         correct = (logits.detach().argmax(dim=1) == y).sum()
-        return state, {"loss": loss.detach(), "correct": correct,
-                       "n": int(y.shape[0])}
+        n = int(y.shape[0])
+        if group is None:
+            return state, {"loss": loss.detach(), "correct": correct,
+                           "n": n}
+        sums = torch.stack([loss.detach().double(), correct.double()])
+        dist.all_reduce(sums, group=group)
+        return state, {"loss": sums[0].float(), "correct": sums[1].long(),
+                       "n": n * dist.get_world_size(group)}
 
     return step
 
@@ -192,42 +233,62 @@ def train_supervised(cfg: TrainConfig, datasets, *, device=None,
                      num_workers: int = 4,
                      state: TrainState | None = None,
                      checkpoint_dir: str | None = None,
-                     start_epoch: int = 0) -> dict[str, Any]:
+                     start_epoch: int = 0, group=None) -> dict[str, Any]:
     """The training loop over a list of ``SupervisedFrameDataset``-likes
     (``supervised.py:train_supervised``): returns ``{"state", "history"}``.
     Without ``state`` the net is initialised from
     ``torch.Generator().manual_seed(cfg.seed)`` on ``device`` (the CUDA
     device when ``None``; an error without one).  A resumed
     run passes ``start_epoch``, which continues the epoch numbering of the
-    log and the snapshots."""
+    log and the snapshots.  ``group``: the data-parallel loop (module
+    docstring); ``cfg.batch_size`` must divide over its ranks, and every
+    rank returns the same history and an equal state."""
     from cut_detection_tpu_torch.data.frames import ConcatDataset
     from cut_detection_tpu_torch.data.loader import (
         PrefetchLoader,
         iter_batches,
     )
 
+    shard = None
+    if group is not None:
+        shard = (dist.get_rank(group), dist.get_world_size(group))
+        rank_rows(cfg.batch_size, group)  # raises where it does not divide
+    lead = shard is None or shard[0] == 0  # logs and writes snapshots
+    log = logger.info if lead else (lambda *args: None)
+
     ds = ConcatDataset(datasets)
     rng = np.random.default_rng(cfg.seed)
     perm = rng.permutation(len(ds))
     split = int(np.floor(len(ds) * (1 - cfg.valid_fraction)))
     train_idx, valid_idx = perm[:split], perm[split:]
-    logger.info("Training frames: %d | Validation frames: %d",
-                len(train_idx), len(valid_idx))
+    log("Training frames: %d | Validation frames: %d",
+        len(train_idx), len(valid_idx))
+    # Under a group the validation batches shard like the train batches,
+    # but for a tail that does not divide over the ranks: every rank
+    # computes that one whole, and it is counted once.
+    tail = len(valid_idx) % cfg.batch_size
+    whole = tail if shard is not None and tail % shard[1] else 0
+    valid_sharded = valid_idx[:len(valid_idx) - whole]
+    valid_whole = valid_idx[len(valid_idx) - whole:]
 
-    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    train_step = make_train_step(cfg, group)
+    eval_step = make_eval_step(cfg)
     if state is None:
         state = init_train_state(torch.Generator().manual_seed(cfg.seed),
                                  cfg, device)
 
     history = []
     for epoch in range(start_epoch, cfg.epochs):
-        logger.info("Starting epoch %d of %d", epoch + 1, cfg.epochs)
+        log("Starting epoch %d of %d", epoch + 1, cfg.epochs)
         m = EpochMetrics()
         wl, wn = 0.0, 0  # the windowed log line's sums, reset per line
-        # The tail batch is kept (reference drop_last=False).
+        # The tail batch is kept (reference drop_last=False), but under a
+        # group, as JAX drops it under a mesh: padding would pollute the
+        # BN statistics.
         batches = iter_batches(ds, cfg.batch_size, indices=train_idx,
                                shuffle=True, seed=cfg.seed + epoch,
-                               drop_last=False, num_workers=num_workers)
+                               drop_last=shard is not None,
+                               num_workers=num_workers, shard=shard)
         for i, batch in enumerate(PrefetchLoader(batches)):
             state, metrics = train_step(state, batch["x"], batch["y"])
             loss = float(metrics["loss"])
@@ -237,32 +298,45 @@ def train_supervised(cfg: TrainConfig, datasets, *, device=None,
             wl += loss
             wn += metrics["n"]
             if i % cfg.write_every_n == cfg.write_every_n - 1:
-                logger.info("Epoch %d | Batch %d | Loss: %.3f",
-                            epoch + 1, i + 1, wl / max(wn, 1))
+                log("Epoch %d | Batch %d | Loss: %.3f",
+                    epoch + 1, i + 1, wl / max(wn, 1))
                 wl, wn = 0.0, 0
         history.append({"epoch": epoch,
                         "train_loss": m.loss / max(m.n, 1),
                         "train_acc": m.correct / max(m.n, 1)})
 
-        correct = np.zeros(cfg.output_size)
-        total = np.zeros(cfg.output_size)
-        vloss, vn = 0.0, 0
-        batches = iter_batches(ds, cfg.batch_size, indices=valid_idx,
-                               drop_last=False, num_workers=num_workers)
-        for batch in PrefetchLoader(batches):
-            metrics = eval_step(state, batch["x"], batch["y"])
-            correct += metrics["correct"].cpu().numpy()
-            total += metrics["total"].cpu().numpy()
-            vloss += float(metrics["loss"])
-            vn += int(metrics["total"].sum())
+        # Per class: loss, correct, total; the sharded part summed over
+        # the ranks in one collective, then the whole tail added once.
+        sums = [torch.zeros(2 * cfg.output_size + 1, dtype=torch.float64)
+                for _ in range(2)]
+        for part, (idx, part_shard) in enumerate(
+                ((valid_sharded, shard), (valid_whole, None))):
+            batches = iter_batches(ds, cfg.batch_size, indices=idx,
+                                   drop_last=False, num_workers=num_workers,
+                                   shard=part_shard)
+            for batch in PrefetchLoader(batches):
+                metrics = eval_step(state, batch["x"], batch["y"])
+                sums[part] += torch.cat([
+                    metrics["loss"].reshape(1).double(),
+                    metrics["correct"].double(),
+                    metrics["total"].double()]).cpu()
+        if shard is not None:
+            reduced = sums[0].to(state.net.device)
+            dist.all_reduce(reduced, group=group)
+            sums[0] = reduced.cpu()
+        total_sums = (sums[0] + sums[1]).numpy()
+        vloss = total_sums[0]
+        correct = total_sums[1:1 + cfg.output_size]
+        total = total_sums[1 + cfg.output_size:]
+        vn = int(total.sum())
         for c, name in enumerate(["A22", "EZ", "blank"][: cfg.output_size]):
-            logger.info("Valid accuracy for %s: %.3f", name,
-                        correct[c] / max(total[c], 1))
+            log("Valid accuracy for %s: %.3f", name,
+                correct[c] / max(total[c], 1))
         history[-1].update({
-            "valid_loss": vloss / max(vn, 1),
+            "valid_loss": float(vloss / max(vn, 1)),
             "valid_acc_per_class": (correct / np.maximum(total, 1)).tolist(),
         })
-        if (checkpoint_dir and cfg.checkpoint_every_n
+        if (lead and checkpoint_dir and cfg.checkpoint_every_n
                 and (epoch + 1) % cfg.checkpoint_every_n == 0):
             from cut_detection_tpu_torch.train.checkpointing import (
                 save_train_state,

@@ -1017,3 +1017,51 @@ def test_served_request_launches_the_block_kernels(cuda_dev, tmp_path):
     with open(out, "rb") as f, open(os.path.join(GOLDEN, "ref_segments.csv"),
                                     "rb") as g:
         assert f.read() == g.read()
+
+
+def test_every_kernel_launches_on_its_tensors_card(cuda_dev):
+    """With ``cuda:0`` current, every kernel route launched on tensors on
+    ``cuda:1`` (``chip_smoke.off_device_kernels``: layer 1 and the
+    mid-stack block at f32, the int8 blocks, resize + normalize, YUV ->
+    BGR, the layer-1 stage bisection) writes there and equals its plain
+    version; ``cuda:0`` stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(GOLDEN), "..",
+                                   "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with torch.cuda.device(0):
+        errs = chip_smoke.off_device_kernels(torch.device("cuda", 1))
+        assert torch.cuda.current_device() == 0
+    assert len(errs) == 9
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8_mxu"])
+def test_sharded_step_over_one_card_twice(cuda_dev, precision):
+    """``make_classify_step(net, mesh=[cuda:0, cuda:0])``: each batch split
+    in two, each half on a replica of its own, the outputs gathered in
+    frame order; the same classes, each instance launched once a shard,
+    and conf within ``chip_smoke.PARALLEL_CONF_TOL`` of the unsharded
+    step: 1e-5 at float32; ``QUANT_CONF_TOL`` at ``int8_mxu``, whose
+    pooled features and hidden layer are rounded to bf16 after cuBLAS
+    sums 64 rows in another order than 128 (1.24e-5 measured)."""
+    from cut_detection_tpu_torch.parallel import make_mesh
+
+    net, _ = load_default_net(cuda_dev, precision)
+    x = T(np.random.default_rng(9).integers(0, 256, (128, 144, 256, 3),
+                                            dtype=np.uint8))
+    conf1, pred1 = make_classify_step(net)(x.to(cuda_dev))
+    step = make_classify_step(net, mesh=make_mesh([cuda_dev, cuda_dev]))
+    kernels = ((conv1_block_i8, conv_block_i8) if precision == "int8_mxu"
+               else (conv1_block, conv_block))
+    before = [k.launches for k in kernels]
+    conf, pred = step(x)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 4]
+    assert conf.device == conf1.device and pred.dtype == torch.int32
+    torch.testing.assert_close(conf, conf1, rtol=0,
+                               atol=1e-5 if precision == "float32"
+                               else QUANT_CONF_TOL)
+    assert torch.equal(pred, pred1)

@@ -165,6 +165,33 @@ def test_int8_device_glue_and_profile_run_without_jax(tmp_path):
     assert [n for n in os.listdir(trace) if n.endswith(".json")]
 
 
+def test_parallel_runs_without_jax(tmp_path):
+    """``parallel/`` imports only the port: with jax and the JAX package
+    blocked, its modules import, the sharded classify step runs over a
+    mesh of two CPU entries, and ``initialize`` outside a group is the
+    single-process no-op."""
+    proc = _run("""
+        import importlib, os
+        for name in ("mesh", "sharding", "distributed", "local_cluster"):
+            importlib.import_module("cut_detection_tpu_torch.parallel." + name)
+        import numpy as np
+        from cut_detection_tpu_torch.models.assembly import load_default_net
+        from cut_detection_tpu_torch.parallel import (
+            distributed, make_mesh, make_sharded_classify_step)
+        net, _ = load_default_net("cpu")
+        conf, pred = make_sharded_classify_step(net, make_mesh(["cpu"] * 2))(
+            np.zeros((4, 36, 64, 3), np.uint8))
+        assert conf.shape == (4,) and pred.shape == (4,)
+        for k in ("RANK", "WORLD_SIZE"):
+            os.environ.pop(k, None)
+        assert distributed.initialize() == 0
+        assert distributed.partition_inputs([1, 2, 3]) == [1, 2, 3]
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_training_clis_run_without_jax(tmp_path):
     """Contrastive pretraining (the fast views), then supervised training
     warm-started from it with ``--export-torch``, and the triplet driving

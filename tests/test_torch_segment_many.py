@@ -3,8 +3,11 @@ handle (``start_decode_ahead`` / ``PreloadedDecode``, taken by
 ``classify_video(preloaded=...)``) and ``cli/segment_videos.py``, held to
 the JAX package's ``segment_many`` and the golden CSVs at float32 /
 ``transfer="bgr"``, byte for byte.  A decode-ahead handle is closed on
-every path (its ``on_close`` fires once), and the batch CLI refuses the
-unported ``--data-parallel`` and ``--multi-host`` at parse time.
+every path (its ``on_close`` fires once).  The batch CLI's
+``--data-parallel`` on one device is unsharded, over several it splits
+the videos a process a device (``segment_per_device``, run here over two
+CPU entries), and ``--multi-host`` outside a torchrun group is a no-op:
+the same bytes (``tests/test_torch_parallel.py`` holds the mesh).
 """
 
 import os
@@ -171,20 +174,47 @@ def test_segment_videos_cli(clips):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--data-parallel"], "--data-parallel: not yet ported"),
-    (["--multi-host"], "--multi-host: not yet ported"),
-    (["--data-parallel", "--multi-host"],
-     "--data-parallel, --multi-host: not yet ported"),
     (["--transfer", "yuv420", "--device-resize"], "cannot combine"),
 ])
 def test_segment_videos_refuses_at_parse_time(capsys, flags, message):
     with pytest.raises(SystemExit) as e:
         segment_videos.main(["a.mp4", "--cpu", *flags])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert message in err
-    if "ported" in message:
-        assert "ROADMAP.md Queue 1 item 5" in err
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data-parallel"], ["--multi-host"], ["--data-parallel", "--multi-host"],
+])
+def test_segment_videos_parallel_flags_on_one_device(
+        synthetic_video, jax_csv, tmp_path, monkeypatch, flags):
+    """``--data-parallel`` with one device runs unsharded and
+    ``--multi-host`` without torchrun's variables is a no-op, as the JAX
+    CLI's are: the JAX ``segment_many``'s bytes, and no group left."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    path = shutil.copy(synthetic_video, str(tmp_path / "synth.mp4"))
+    outs = segment_videos.main([path, "--cpu", "--transfer", "bgr", *flags])
+    assert outs == [path[:-4] + "_segments.csv"]
+    assert _read(outs[0]) == jax_csv
+    assert not torch.distributed.is_initialized()
+
+
+def test_segment_videos_splits_the_videos_a_process_a_device(
+        synthetic_video, jax_csv, tmp_path):
+    """``segment_per_device``, which ``--data-parallel`` runs over several
+    cards, here over two CPU entries: process 0 takes the first and third
+    video, process 1 the second, and every CSV is the JAX bytes."""
+    paths = [shutil.copy(synthetic_video, str(tmp_path / f"v{i}.mp4"))
+             for i in range(3)]
+    ns = segment_videos.build_parser().parse_args(
+        [*paths, "--cpu", "--transfer", "bgr", "--data-parallel"])
+    outs, seconds = segment_videos.segment_per_device(
+        ns, paths, [torch.device("cpu")] * 2)
+    assert outs == [p[:-4] + "_segments.csv" for p in paths]
+    assert seconds > 0
+    assert all(_read(o) == jax_csv for o in outs)
 
 
 def test_segment_videos_needs_a_device_unless_asked_for_the_cpu(

@@ -501,15 +501,31 @@ def test_warmup_server_and_reload(synthetic_video, tmp_path, monkeypatch):
     assert serve._warmup_net(state.net) >= 0.0  # on the port's step
 
 
-def test_parser_flags_and_refusals(capsys):
+def test_parser_flags_and_refusals(monkeypatch):
+    """The flags parse; ``--data-parallel`` builds a mesh over every
+    visible card, handed to ``make_server``, and none on one device (the
+    mesh itself: ``tests/test_torch_parallel.py``)."""
     p = serve.build_parser()
     assert p.parse_args([]).no_warmup is False
     assert p.parse_args(["--no-warmup"]).no_warmup is True
     assert p.parse_args([]).transfer == "auto"
     assert p.parse_args(["--transfer", "yuv420"]).transfer == "yuv420"
-    with pytest.raises(SystemExit):
-        serve.main(["--data-parallel", "--cpu"])
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    made = []
+
+    class Server:
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(serve, "make_server",
+                        lambda *a, **kw: made.append(kw) or (Server(), None))
+    serve.main(["--data-parallel", "--cpu"])
+    assert made[-1]["mesh"] is None and made[-1]["device"] == CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    serve.main(["--data-parallel"])
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert made[-1]["mesh"].devices == cards
+    assert made[-1]["device"] == cards[0]
 
 
 def test_device_heartbeat_healthz():

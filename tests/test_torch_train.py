@@ -480,9 +480,9 @@ def test_remat_matches_plain_and_moves_bn_once(monkeypatch):
     calls = []
     original = ConvBlock.forward_train
 
-    def counted(self, x):
+    def counted(self, x, group=None):
         calls.append(1)
-        return original(self, x)
+        return original(self, x, group)
 
     monkeypatch.setattr(ConvBlock, "forward_train", counted)
     jcfg, _ = _cfgs()

@@ -13,7 +13,8 @@ written here with numpy and cv2, trains a 2-layer, 8-channel net:
 - ``--load-conv-net`` warm-starts from the port's contrastive
   ``{name}_conv.npz``, which JAX's ``load_embedding_net`` also reads;
 - without a card and without ``--cpu`` both CLIs stop; ``--data-parallel``
-  trains unsharded on one device and is refused over several.
+  trains unsharded on one device and over several starts one rank a card
+  (the ranks' loops are held in ``tests/test_torch_distributed.py``).
 """
 
 import json
@@ -169,8 +170,8 @@ def test_load_conv_net_warm_starts_from_contrastive(frames_dir, tmp_path,
 def test_clis_need_a_card_or_cpu(frames_dir, tmp_path, monkeypatch, cli,
                                  capsys):
     """No card: both stop unless ``--cpu``.  ``--data-parallel`` with one
-    device trains unsharded (``--cpu``); over several cards it is refused
-    before anything runs."""
+    device trains unsharded (``--cpu``); over several cards it starts one
+    rank a card, each running the CLI's ``train`` on the parsed flags."""
     main = (train_supervised if cli == "supervised"
             else train_contrastive).main
     args = (["--data-dirs", frames_dir] if cli == "supervised"
@@ -181,7 +182,14 @@ def test_clis_need_a_card_or_cpu(frames_dir, tmp_path, monkeypatch, cli,
         main(args)
     assert "--cpu" in capsys.readouterr().err
     main(args + ["--cpu", "--data-parallel"])
+    from cut_detection_tpu_torch.parallel import distributed
+
+    spawned = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit):
-        main(args + ["--data-parallel"])
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    monkeypatch.setattr(distributed, "spawn",
+                        lambda fn, n, *a: spawned.append((fn, n, a)))
+    main(args + ["--data-parallel"])
+    module = train_supervised if cli == "supervised" else train_contrastive
+    [(fn, n, (ns,))] = spawned
+    assert fn is module.train and n == 2
+    assert ns.data_parallel and not ns.cpu and ns.epochs == 0
