@@ -111,7 +111,11 @@ Phases, each of which raises on failure:
              then the labelled eval-corpus clips at both bf16 rungs and
              ``corpus_a`` and ``corpus_nat`` at both quantized rungs,
              held to the JAX package's gates, and ``corpus_adv`` too at
-             ``int8_mxu``; ``--device-glue`` at float32 on both golden
+             ``int8_mxu`` (the float32 runs without a preprocess flag
+             through the decode subprocess, the CLI's default on the
+             card, the others decoding in-process: the subprocess's
+             start-up, about 10 s, outweighs these clips' work);
+             ``--device-glue`` at float32 on both golden
              clips (the host glue's bytes, the reference's) and
              ``--profile DIR`` on ``clip.mp4`` (a trace file holding the
              card's kernels, the same bytes).  Where the native
@@ -172,6 +176,22 @@ Phases, each of which raises on failure:
              float32 (cv2 decode, sequential and parallel; the resident
              loop; end to end); ``split_video`` on the golden clip, the
              same JPEG bytes at ``--decode-workers`` 1 and 4.
+12b. scripts — the workflow and measurement entry points as a user runs
+             them: (a) ``e2e_workflow_demo`` at the prod shape and its
+             default epochs (split, SimCLR pretraining, warm-started
+             supervised training, ``segment_video --model-dir``,
+             ``evaluate``): the held-out clip at frame accuracy >= 0.99
+             and boundary precision and recall >= 0.90 (tolerance 15),
+             and ``segment_video``'s launches counted from 0 around that
+             stage: ``conv1_block[f32]`` once and ``conv_block[f32]``
+             twice a batch; (b) ``bench_full_game`` at 4,096 frames with
+             its three default modes: every mode that ran decodes every
+             frame with no failure, yuv420 skipped exactly where the
+             native YUV decoder is missing, the card named, and
+             ``csv_parity_bgr`` printed; (c) ``bench_train`` and (d)
+             ``profile_simclr_step`` at their defaults: finite positive
+             times and finite losses; (e) ``bench_decode`` at 2,000
+             frames.
 13. parallel — several cards and processes (``parallel/``): (a) the
              slice stream through the device loop with each batch split
              over a mesh of every card (one card listed twice where there
@@ -1494,6 +1514,20 @@ def phase_golden(workdir):
     log(f"golden: decoder {decoder}")
     extra = [] if decoder == "cv2" else ["--decoder", "native",
                                          "--decode-process", "off"]
+    # The decode subprocess, the CLI's default on the card, takes about
+    # 10 s to start, more than these clips take to classify.  The first
+    # run of each decode path (its preprocess flags and transfer: full
+    # frames through the ring under --device-resize) keeps it; a later run
+    # that repeats a path decodes in this process (the same frames, and
+    # the same CSV bytes).
+    covered = set()
+
+    def decode(flags, transfer="bgr"):
+        if (tuple(flags), transfer) in covered:
+            return [*extra, "--decode-process", "off"]
+        covered.add((tuple(flags), transfer))
+        return extra
+
     for precision in ("float32", "bfloat16", "bfloat16_full", *QUANTIZED):
         for flags in PREPROCESS_FLAGS:
             # float32 runs every flag set on both clips, the bf16 rungs
@@ -1514,7 +1548,7 @@ def phase_golden(workdir):
                 ref = os.path.join(GOLDEN, ref)
                 wall, launches = _cli_run(
                     cli_main, os.path.join(GOLDEN, clip), out, precision,
-                    flags + extra, n)
+                    flags + decode(flags), n)
                 with open(out, "rb") as f, open(ref, "rb") as g:
                     same = f.read() == g.read()
                 acc = evaluate(out, ref, n)["frame_accuracy"]
@@ -1537,7 +1571,7 @@ def phase_golden(workdir):
         out = os.path.join(workdir, name + ".csv")
         wall, launches = _cli_run(
             cli_main, os.path.join(CORPUS, name + ".mp4"), out,
-            precision, extra, n)
+            precision, decode([]), n)
         res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
                        n, tolerance=30)
         if name == "corpus_nat" and precision != "bfloat16":
@@ -1553,19 +1587,20 @@ def phase_golden(workdir):
         if not ok:
             raise AssertionError(f"{name} {precision} fails its gate: "
                                  f"{res}")
-    golden_options(cli_main, workdir, extra)
-    golden_yuv(cli_main, evaluate, workdir, extra)
+    golden_options(cli_main, workdir, decode)
+    golden_yuv(cli_main, evaluate, workdir, decode)
 
 
-def golden_options(cli_main, workdir, extra):
+def golden_options(cli_main, workdir, decode):
     """``--device-glue`` at float32 on both golden clips (the host glue's
     bytes, which are the reference's), then ``--profile DIR`` on
     ``clip.mp4``: the reference's bytes and one trace file in DIR that
-    holds the card's kernels."""
+    holds the card's kernels.  ``decode(flags, transfer)`` gives a run's
+    decoder flags (``phase_golden``)."""
     for clip, ref, n in GOLDEN_CLIPS:
         out = os.path.join(workdir, clip + ".csv")
         wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
-                                  "float32", ["--device-glue", *extra], n)
+                                  "float32", ["--device-glue", *decode([])], n)
         with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
             same = f.read() == g.read()
         log(f"golden: {clip} float32 --device-glue -> "
@@ -1578,7 +1613,7 @@ def golden_options(cli_main, workdir, extra):
     out = os.path.join(workdir, clip + ".csv")
     trace = os.path.join(workdir, "trace")
     wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
-                              "float32", ["--profile", trace, *extra], n)
+                              "float32", ["--profile", trace, *decode([])], n)
     with open(out, "rb") as f, open(os.path.join(GOLDEN, ref), "rb") as g:
         same = f.read() == g.read()
     names = os.listdir(trace)
@@ -1596,7 +1631,7 @@ def golden_options(cli_main, workdir, extra):
                              "card's kernels was written")
 
 
-def golden_yuv(cli_main, evaluate, workdir, extra):
+def golden_yuv(cli_main, evaluate, workdir, decode):
     """The yuv420 transfer through the CLI, where the native decoder has
     its YUV entry points (the port builds it with ``make -C native`` on
     first use): ``auto`` must resolve to yuv420 on the card; the golden
@@ -1604,7 +1639,8 @@ def golden_yuv(cli_main, evaluate, workdir, extra):
     byte, the other rungs on ``clip.mp4`` at frame accuracy >= 0.99
     against the reference; then ``YUV_CORPUS`` at float32 and
     ``uint8_chain`` at the JAX package's gates.  Launches are checked in
-    every run (one ``yuv420_to_bgr`` a batch)."""
+    every run (one ``yuv420_to_bgr`` a batch).  ``decode`` as in
+    ``golden_options``."""
     from cut_detection_tpu_torch.data import native_video
     from cut_detection_tpu_torch.pipeline import resolve_transfer
 
@@ -1626,7 +1662,8 @@ def golden_yuv(cli_main, evaluate, workdir, extra):
         out = os.path.join(workdir, clip + ".csv")
         ref = os.path.join(GOLDEN, ref)
         wall, launches = _cli_run(cli_main, os.path.join(GOLDEN, clip), out,
-                                  precision, extra, n, transfer)
+                                  precision, decode([], transfer), n,
+                                  transfer)
         with open(out, "rb") as f, open(ref, "rb") as g:
             same = f.read() == g.read()
         acc = evaluate(out, ref, n)["frame_accuracy"]
@@ -1642,7 +1679,7 @@ def golden_yuv(cli_main, evaluate, workdir, extra):
             out = os.path.join(workdir, name + ".csv")
             wall, launches = _cli_run(
                 cli_main, os.path.join(CORPUS, name + ".mp4"), out,
-                precision, extra, n, "yuv420")
+                precision, decode([], "yuv420"), n, "yuv420")
             res = evaluate(out, os.path.join(CORPUS, name + "_truth.csv"),
                            n, tolerance=30)
             ok = (res["frame_accuracy"] >= 0.99
@@ -2399,6 +2436,151 @@ def phase_tools(dev, card, workdir):
     out["embed"] = tools_embed(dev, card, workdir)
     out["bench"] = tools_bench(card, clip)
     out["split"] = tools_split(card, workdir)
+    return out
+
+
+WORKFLOW_GATES = {"frame_accuracy": 0.99, "boundary_precision": 0.90,
+                  "boundary_recall": 0.90}  # the JAX corpus gates
+SCRIPTS_GAME_FRAMES = 4096   # bench_full_game's clip in this phase
+SCRIPTS_DECODE_FRAMES = 2000
+
+
+def scripts_workflow(card, workdir) -> dict:
+    """``e2e_workflow_demo`` at its defaults (the prod shape) on the card:
+    the held-out clip at the JAX corpus gates, and ``segment_video``'s
+    launches, counted from 0 around that stage alone: ``conv1_block[f32]``
+    once and ``conv_block[f32]`` twice a batch of the held-out clip."""
+    from cut_detection_tpu_torch.cli import segment_video
+    from cut_detection_tpu_torch.scripts import e2e_workflow_demo as demo
+
+    real, seen = segment_video.main, {}
+
+    def counted(args):
+        zero_launches()
+        out = real(args)
+        seen.update(read_launches())
+        return out
+
+    segment_video.main = counted
+    try:
+        rec = demo.main(["--workdir", os.path.join(workdir, "workflow")])
+    finally:
+        segment_video.main = real
+    n_frames = sum(b[1] for b in demo.EVAL_BLOCKS)
+    batches = -(-n_frames // BATCH)
+    check_launches(f"scripts: the workflow's segment_video ({n_frames} "
+                   f"frames, {batches} batches)", seen, per_batch(batches))
+    scores = rec["scores"]
+    log(f"scripts: workflow at the prod shape: stages {rec['stages_s']} "
+        f"(total {rec['total_s']} s), held-out scores {scores}, "
+        f"segment_video launches {seen} [{card}]")
+    if rec["backend"] != card:
+        raise AssertionError(f"scripts: workflow backend {rec['backend']}")
+    low = {k: scores[k] for k, bar in WORKFLOW_GATES.items()
+           if not scores[k] >= bar}
+    if low:
+        raise AssertionError(f"scripts: workflow below the gates {low}")
+    return rec
+
+
+def scripts_full_game(card, workdir) -> dict:
+    """``bench_full_game`` at ``SCRIPTS_GAME_FRAMES`` frames with its three
+    default modes, its clip, CSVs and record in a directory of its own:
+    every mode that ran decodes every frame without a failure, yuv420
+    is skipped exactly where the native YUV decoder is missing, and the
+    record names the card."""
+    from cut_detection_tpu_torch.data import native_video
+    from cut_detection_tpu_torch.scripts import bench_full_game
+
+    game_dir = tempfile.mkdtemp(dir=workdir, prefix="full_game_")
+    env = {"FULL_GAME_FRAMES": str(SCRIPTS_GAME_FRAMES),
+           "FULL_GAME_OUT": os.path.join(game_dir, "game.json")}
+    saved = {k: os.environ.get(k) for k in (*env, "FULL_GAME_MODES",
+                                            "FULL_GAME_WORKERS")}
+    saved_tmp = tempfile.tempdir
+    os.environ.update(env)
+    os.environ.pop("FULL_GAME_MODES", None)
+    os.environ.pop("FULL_GAME_WORKERS", None)
+    tempfile.tempdir = game_dir
+    try:
+        rec = bench_full_game.main([])
+    finally:
+        tempfile.tempdir = saved_tmp
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    yuv = native_video.yuv_available()
+    modes = rec["modes"]
+    for key, mode in modes.items():
+        if "skipped" in mode:
+            continue
+        if (mode["frames"], mode["decode_failures"]) != (
+                SCRIPTS_GAME_FRAMES, 0):
+            raise AssertionError(f"scripts: full game {key}: {mode}")
+    if ("skipped" in modes["yuv420_uint8_chain"]) == yuv:
+        raise AssertionError(f"scripts: full game yuv420 with the YUV "
+                             f"decoder {'built' if yuv else 'missing'}: "
+                             f"{modes['yuv420_uint8_chain']}")
+    if rec["hardware"] != card:
+        raise AssertionError(f"scripts: full game hardware "
+                             f"{rec['hardware']!r}, card {card!r}")
+    log(f"scripts: bench_full_game at {SCRIPTS_GAME_FRAMES} frames: "
+        + "; ".join(f"{k} {m}" if "skipped" in m else
+                    f"{k} {m['e2e_s']} s, {m['fps']} frames/s, "
+                    f"{m['segments']} segments"
+                    for k, m in modes.items())
+        + f"; csv_parity_bgr {rec.get('csv_parity_bgr')} [{card}]")
+    return rec
+
+
+def _finite_positive(what: str, rec: dict, keys) -> None:
+    bad = {k: rec[k] for k in keys
+           if not (np.isfinite(rec[k]) and rec[k] > 0)}
+    if bad:
+        raise AssertionError(f"scripts: {what}: {bad}")
+
+
+def phase_scripts(dev, card, workdir):
+    """The port's workflow and measurement entry points on the card as a
+    user runs them: (a) ``e2e_workflow_demo`` at the prod shape, (b)
+    ``bench_full_game`` at ``SCRIPTS_GAME_FRAMES`` frames, (c)
+    ``bench_train`` and (d) ``profile_simclr_step`` at their defaults,
+    (e) ``bench_decode`` at ``SCRIPTS_DECODE_FRAMES`` frames."""
+    from cut_detection_tpu_torch.scripts import (
+        bench_decode,
+        bench_train,
+        profile_simclr_step,
+    )
+
+    out = {"workflow": scripts_workflow(card, workdir),
+           "full_game": scripts_full_game(card, workdir)}
+    rec = bench_train.main([])
+    _finite_positive("bench_train", rec,
+                     [k for k in rec if k.endswith(("_ms", "_per_sec"))])
+    bad = [k for k in rec if k.endswith("_loss")
+           and not np.isfinite(rec[k])]
+    if bad:
+        raise AssertionError(f"scripts: bench_train losses {bad}: {rec}")
+    log(f"scripts: bench_train {rec} [{card}]")
+    out["train"] = rec
+    rec = profile_simclr_step.main([])
+    _finite_positive("profile_simclr_step", rec,
+                     [k for k in rec if k.endswith("_ms")])
+    log(f"scripts: profile_simclr_step {rec} [{card}]")
+    out["simclr"] = rec
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = tempfile.mkdtemp(dir=workdir, prefix="decode_")
+    try:
+        rec = bench_decode.main([str(SCRIPTS_DECODE_FRAMES)])
+    finally:
+        tempfile.tempdir = saved_tmp
+    _finite_positive("bench_decode", rec,
+                     ["cv2_threads_1", "cv2_threads_0"])
+    log(f"scripts: bench_decode at {SCRIPTS_DECODE_FRAMES} frames {rec} "
+        f"[{card}]")
+    out["decode"] = rec
     return out
 
 
@@ -3325,6 +3507,7 @@ def run() -> tuple[str, list[dict]]:
         timed("device_glue", phase_device_glue, dev)
         timed("train", phase_train, dev, card, wd)
         timed("tools", phase_tools, dev, card, wd)
+        timed("scripts", phase_scripts, dev, card, wd)
         timed("parallel", phase_parallel, dev, frames, wd)
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:

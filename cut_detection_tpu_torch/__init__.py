@@ -17,7 +17,12 @@ names so each piece has an obvious counterpart:
                          ``export_model`` (``torch.export`` and ``.pt``),
                          ``bench_pipeline``, ``split_video`` and
                          ``labelling``.
-- ``scripts``            measurement entry points (``bench_fused_conv1``).
+- ``scripts``            measurement and workflow entry points
+                         (``bench_fused_conv1``, ``profile_fused_conv1``,
+                         ``bench_train``, ``profile_simclr_step``,
+                         ``bench_full_game``, ``bench_decode``,
+                         ``e2e_workflow_demo``, ``make_eval_corpus``,
+                         ``convert_prod_net``, ``derive_yuv_constants``).
 
 The port imports nothing of ``cut_detection_tpu``: ``config``,
 ``checkpoint``, ``geometry``, ``native``, ``data``, ``utils``,
@@ -25,6 +30,8 @@ The port imports nothing of ``cut_detection_tpu``: ``config``,
 copies of the JAX package's jax-free modules, and the bundled classifier
 is read from ``cut_detection_tpu/prod_net/`` by path.
 """
+
+from cut_detection_tpu_torch.version import __version__
 
 # Lazy re-exports (PEP 562): submodule imports run this file first, so it
 # must stay dependency-free — torch loads only when a model or the

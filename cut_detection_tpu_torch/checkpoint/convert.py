@@ -9,13 +9,17 @@ OIHW and [out, in].  Keys follow the reference's own module layout
 ``conv.`` / ``linear.`` prefixes of ``GluedNet``, so a reference ``.pt``
 state dict loads into the same modules unchanged.  ``params_from_jax``
 reads a bundle into a state dict; ``bundle_from_state_dict`` writes one
-back, so a triplet the port trains loads in the JAX package.
+back, so a triplet the port trains loads in the JAX package;
+``convert_torch_checkpoint`` reads the reference's ``.pt`` pair into a
+bundle (``cut_detection_tpu/checkpoint/convert.py:83-101``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cut_detection_tpu_torch.config import ModelParams
 
 
 def _t(arr) -> torch.Tensor:
@@ -95,6 +99,28 @@ def bundle_from_state_dict(sd) -> dict:
         lin_s.append(s)
     return {"conv": {"params": conv_p, "state": conv_s},
             "linear": {"params": lin_p, "state": lin_s}}
+
+
+def convert_torch_checkpoint(param_file: str, conv_file: str,
+                             linear_file: str):
+    """The reference's checkpoint triplet (the ``*_model_params.json``
+    sidecar and the conv and linear ``.pt`` state dicts) -> ``(bundle,
+    model_params)``.  The state dicts are read with ``weights_only=True``
+    (tensors only, nothing unpickled beyond them) and must hold the
+    sidecar's layer counts."""
+    model_params = ModelParams.from_json(param_file)
+    sd = {}
+    for prefix, path in (("conv.", conv_file), ("linear.", linear_file)):
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
+        sd.update({prefix + k: v for k, v in loaded.items()})
+    bundle = bundle_from_state_dict(sd)
+    got = (len(bundle["conv"]["params"]), len(bundle["linear"]["params"]))
+    want = (model_params.conv_layers, model_params.linear_layers)
+    if got != want:
+        raise ValueError(f"{conv_file}, {linear_file}: {got[0]} conv and "
+                         f"{got[1]} linear layers, but {param_file} says "
+                         f"{want[0]} and {want[1]}")
+    return bundle, model_params
 
 
 def export_torch_state_dicts(bundle):

@@ -25,7 +25,7 @@ row of the ``[H, W, Cout]`` canvas that ``const_conv_ring`` builds
 (``ring_canvas`` builds it back).
 
 The plain version computes the sums with ``ops.nn.conv2d_same_i8_plain``
-(float64 im2col, exact) and the epilogue in torch ops, quantizing each
+(float32 im2col, exact) and the epilogue in torch ops, quantizing each
 conv pixel before the pool; the kernel pools ``z`` first (ReLU and the
 quantization are nondecreasing) and rounds the same IEEE operations, so
 the two agree with a max diff of 0.  What bounds it on an H100, and the
@@ -57,7 +57,8 @@ def quantize_pool_i8(z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     half to even, as ``jnp.rint``; the codes are pooled as exact f32
     integers.  ``z`` may be bf16 (the dense layer 1), promoted to f32 by
     the division as JAX promotes it."""
-    q = torch.clamp(torch.round(z / scale) - 128.0, -128.0, 127.0)
+    q = z / scale
+    q.round_().sub_(128.0).clamp_(-128.0, 127.0)
     return max_pool(q, 3).to(torch.int8)
 
 
@@ -69,13 +70,15 @@ def _block_plain(x_i8, kernel, so, ring, scale):
     if h < 3 or w < 3:
         return out
     canvas = ring_canvas(ring.float(), h)
-    # A few frames at a time: layer 1's float64 im2col columns take 8 MB a
-    # frame and its int32 sums 7 MB.
-    chunk = 16
+    # A few frames at a time: layer 1's float32 im2col columns take 4 MB a
+    # frame and its f32 activations 7 MB.  The epilogue works in place on
+    # one f32 buffer a chunk (the same IEEE operations): a fresh buffer an
+    # operation made it several times slower on the CPU.
+    chunk = 32
     for lo in range(0, b, chunk):
-        zi = conv2d_same_i8_plain(x_i8[lo:lo + chunk], kernel)
-        z = zi.float() * so + canvas
-        out[lo:lo + chunk] = quantize_pool_i8(torch.relu(z), scale)
+        z = conv2d_same_i8_plain(x_i8[lo:lo + chunk], kernel).float()
+        z.mul_(so).add_(canvas).relu_()
+        out[lo:lo + chunk] = quantize_pool_i8(z, scale)
     return out
 
 

@@ -227,23 +227,33 @@ def quantize_kernel_i8(kernel):
     return k_i8.to(torch.int8), scale
 
 
+# The widest int8 input whose 3x3 sums float32 holds exactly:
+# 9 * Cin * 128 * 127 < 2^24.
+I8_F32_EXACT_CIN = (2 ** 24 - 1) // (9 * 128 * 127)
+
+
 def conv2d_same_i8_plain(x_i8, kernel_i8):
     """3x3 'same' convolution of int8 operands with exact int32 sums, NHWC
     x HWIO -> NHWC (``cut_detection_tpu/ops/nn.py:73-91``).
 
     Zero-padded im2col columns ``[H*W, 9*Cin]`` against the kernel as
-    ``[9*Cin, Cout]``, in float64, then cast to int32.  Every product and
+    ``[9*Cin, Cout]``, in float32, then cast to int32.  Every product and
     partial sum is an integer of magnitude at most ``9 * Cin * 128 * 127``
-    (7,022,592 at 48 channels, below 2^24), so the result is exact in any
-    summation order on either device.  ``F.conv2d`` is no substitute: on
-    int8 it returns int8 (it wraps), and an f32 convolution may take a
-    Winograd or FFT algorithm, which is not exact.  The columns take 72
-    times the input's bytes: callers pass a few frames at a time.
+    (7,022,592 at 48 channels), so while that is below 2^24 (``Cin`` at
+    most ``I8_F32_EXACT_CIN``, 114) float32 holds it exactly and the
+    result is exact in any summation order on either device, TF32
+    included: operands of magnitude at most 255 are exact in its 10-bit
+    mantissa.  A wider input is summed in float64, exact to 2^53.
+    ``F.conv2d`` is no substitute: on int8 it returns int8 (it wraps), and
+    an f32 convolution may take a Winograd or FFT algorithm, which is not
+    exact.  The columns take 72 times the input's bytes: callers pass a
+    few frames at a time.
     """
     b, h, w, cin = x_i8.shape
     cout = kernel_i8.shape[-1]
+    dtype = torch.float32 if cin <= I8_F32_EXACT_CIN else torch.float64
     # F.unfold orders a column (c, ky, kx): the kernel likewise.
-    wmat = kernel_i8.permute(2, 0, 1, 3).reshape(9 * cin, cout).double()
-    cols = F.unfold(_nchw(x_i8).double(), 3, padding=1)  # [B, 9*Cin, H*W]
+    wmat = kernel_i8.permute(2, 0, 1, 3).reshape(9 * cin, cout).to(dtype)
+    cols = F.unfold(_nchw(x_i8).to(dtype), 3, padding=1)  # [B, 9*Cin, H*W]
     sums = cols.transpose(1, 2) @ wmat                    # [B, H*W, Cout]
     return sums.reshape(b, h, w, cout).to(torch.int32)

@@ -45,6 +45,20 @@ GV_COEF = -53279
 RV_COEF = 104597
 
 
+def tables_np() -> dict[str, np.ndarray]:
+    """The five 256-entry int64 tables of the closed forms above, by name
+    (``ly``, ``bu``, ``gu``, ``gv``, ``rv``): what
+    ``scripts/derive_yuv_constants`` holds against live swscale."""
+    i = np.arange(256, dtype=np.int64)
+    return {
+        "ly": (LY_COEF * (i - 16) + LY_ROUND) >> 16,
+        "bu": (BU_COEF * (i - 128)) >> 16,
+        "gu": (GU_COEF * (i - 128)) >> 16,
+        "gv": (GV_COEF * (i - 128)) >> 16,
+        "rv": (RV_COEF * (i - 128)) >> 16,
+    }
+
+
 def _check_dims(h: int, w: int) -> None:
     if h % 2 or w % 2:
         raise ValueError(

@@ -5,7 +5,7 @@ The port imports nothing of ``cut_detection_tpu`` (``test_torch_imports``
 checks that), so it keeps copies, under the same relative paths, of what
 it calls: ``config`` (with ``TrainConfig`` and ``ContrastiveConfig``),
 ``checkpoint.io`` (the reader and the writer), ``checkpoint.convert``'s
-``export_torch_state_dicts``, ``geometry`` (held by
+``export_torch_state_dicts``, ``version``, ``geometry`` (held by
 ``tests/test_torch_preprocess.py``), ``utils.logging``,
 ``utils.profiling``, ``native``, ``data.video`` (with the yuv backend of
 ``ParallelVideoReader``), ``data.native_video`` (``NativeVideoSource``,
@@ -106,6 +106,18 @@ def test_train_configs_match(name):
     cfg = config.ConvNetConfig(hidden_channels=48, average_pool_size=4)
     assert cfg.feature_size == jax_config.ConvNetConfig(
         hidden_channels=48, average_pool_size=4).feature_size == 768
+
+
+def test_version_matches():
+    """``cut_detection_tpu_torch.__version__`` is its own copy of the JAX
+    package's (``version.py``), exported as ``cut_detection_tpu`` exports
+    it."""
+    import cut_detection_tpu_torch
+    from cut_detection_tpu_torch import version
+
+    assert cut_detection_tpu_torch.__version__ == version.__version__ \
+        == cut_detection_tpu.__version__
+    assert "__version__" in dir(cut_detection_tpu_torch)
 
 
 def test_prod_net_is_read_in_place():

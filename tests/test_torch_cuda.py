@@ -1065,3 +1065,34 @@ def test_sharded_step_over_one_card_twice(cuda_dev, precision):
                                atol=1e-5 if precision == "float32"
                                else QUANT_CONF_TOL)
     assert torch.equal(pred, pred1)
+
+
+def test_full_game_bench_on_card_matches_cpu(cuda_dev, tmp_path,
+                                             monkeypatch):
+    """``bench_full_game`` at 512 frames in ``bgr:float32`` on the card:
+    its CSV is the same run's ``--cpu`` CSV byte for byte, every frame is
+    decoded, and the record names the card."""
+    import tempfile
+
+    from cut_detection_tpu_torch.scripts import bench_full_game
+    from cut_detection_tpu_torch.utils.device import card_info
+
+    monkeypatch.setenv("FULL_GAME_FRAMES", "512")
+    monkeypatch.setenv("FULL_GAME_MODES", "bgr:float32")
+    monkeypatch.delenv("FULL_GAME_WORKERS", raising=False)
+    csvs, records = {}, {}
+    for where, argv in (("card", []), ("cpu", ["--cpu"])):
+        d = tmp_path / where
+        d.mkdir()
+        monkeypatch.setattr(tempfile, "tempdir", str(d))
+        monkeypatch.setenv("FULL_GAME_OUT", str(d / "game.json"))
+        records[where] = bench_full_game.main(argv)
+        with open(bench_full_game.csv_path(512, "bgr_float32"), "rb") as f:
+            csvs[where] = f.read()
+    assert csvs["card"] == csvs["cpu"]
+    assert records["card"]["hardware"] == card_info()
+    assert records["card"]["hardware"].startswith(
+        torch.cuda.get_device_name(0))
+    assert records["cpu"]["hardware"].startswith("cpu")
+    mode = records["card"]["modes"]["bgr_float32"]
+    assert mode["frames"] == 512 and mode["decode_failures"] == 0

@@ -20,6 +20,8 @@ import textwrap
 
 import pytest
 
+from tests.torch_threads import TEST_THREADS
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "cut_detection_tpu")
@@ -36,7 +38,9 @@ def _run(code: str, tmp_path) -> subprocess.CompletedProcess:
         (shadow / name).mkdir(parents=True)
         (shadow / name / "__init__.py").write_text(
             f"raise ImportError('{name} is blocked here')\n")
-    env = dict(os.environ,
+    # The port's tests' thread cap: the suite's six workers share eight
+    # cores.
+    env = dict(os.environ, OMP_NUM_THREADS=str(TEST_THREADS),
                PYTHONPATH=os.pathsep.join([str(shadow), REPO]))
     return subprocess.run(
         [sys.executable, "-c", _BLOCK + textwrap.dedent(code)],
@@ -271,3 +275,40 @@ def test_tool_clis_run_without_jax(tmp_path):
     assert json.loads(proc.stdout.splitlines()[0])["healthy"] is True
     assert sorted(os.listdir(frames)) == [
         f"frame_{i:07}.jpg" for i in range(3)]
+
+
+def test_scripts_run_without_jax(tmp_path):
+    """The scripts' code that the syntax check above cannot see runs with
+    jax and the JAX package blocked, at tiny sizes on the CPU:
+    ``bench_decode``'s worker subprocess, ``bench_full_game``,
+    the corpus writer and ``convert_torch_checkpoint``."""
+    proc = _run(f"""
+        import json, os, tempfile, torch
+        from cut_detection_tpu_torch.checkpoint.convert import (
+            convert_torch_checkpoint, export_torch_state_dicts)
+        from cut_detection_tpu_torch.checkpoint.io import load_bundle
+        from cut_detection_tpu_torch.scripts import (
+            bench_decode, bench_full_game, make_eval_corpus)
+        from cut_detection_tpu_torch.scripts.bench_clip import (
+            make_bench_clip)
+        tmp = {str(tmp_path)!r}
+        tempfile.tempdir = tmp
+        clip = make_bench_clip(os.path.join(tmp, "c.mp4"), 16, w=64, h=36)
+        assert bench_decode.run_one("cv2", clip, "1")["frames"] == 16
+        make_eval_corpus.write_clip(os.path.join(tmp, "e.mp4"),
+                                    [("b", 3, (10, 10, 10))], 0, w=32, h=32)
+        os.environ.update(FULL_GAME_FRAMES="20", FULL_GAME_MODES="bgr:float32",
+                          FULL_GAME_OUT=os.path.join(tmp, "g.json"))
+        assert bench_full_game.main(["--cpu"])["frames"] == 20
+        prod = os.path.join({REPO!r}, "cut_detection_tpu", "prod_net")
+        conv_sd, lin_sd = export_torch_state_dicts(
+            load_bundle(os.path.join(prod, "init_model.npz")))
+        torch.save(conv_sd, os.path.join(tmp, "c.pt"))
+        torch.save(lin_sd, os.path.join(tmp, "l.pt"))
+        convert_torch_checkpoint(
+            os.path.join(prod, "init_model_model_params.json"),
+            os.path.join(tmp, "c.pt"), os.path.join(tmp, "l.pt"))
+        assert sys.modules["jax"] is None
+        assert sys.modules["cut_detection_tpu"] is None
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr

@@ -61,12 +61,20 @@ from cut_detection_tpu_torch.ops.nn import (
     max_pool,
     quantize_kernel_i8,
 )
-from cut_detection_tpu_torch.pipeline import classify_video, make_classify_step
+from cut_detection_tpu_torch.pipeline import (
+    _smooth,
+    classify_video,
+    make_classify_step,
+)
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 T = torch.from_numpy
 LOGIT_TOL = 2e-2
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CORPUS = os.path.join(os.path.dirname(__file__), "eval_corpus")
+
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +151,35 @@ def test_conv2d_same_i8_plain_matches_jax(source, shape):
     got = conv2d_same_i8_plain(T(x), T(k))
     assert got.dtype == torch.int32 and want.dtype == np.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "mixed"])
+@pytest.mark.parametrize("cin", [3, 48, 114, 115])
+def test_conv2d_same_i8_plain_exact_at_extreme_operands(cin, pattern):
+    """The sums are exact at the largest partial sums the layers can
+    make: every input -128 or 127 (layer 1's uint8 0 or 255 after its
+    -128 shift), every weight -127 or 127.  ``uniform`` reaches the bound
+    ``9 * Cin * 128 * 127`` (7,022,592 at 48 channels) inside the frame;
+    ``mixed`` draws the signs.  114 channels is the widest input whose
+    bound float32 holds (16,678,656 < 2^24); 115 is past it, where the
+    sums are taken in float64.  Held against an int64 reference."""
+    rng = np.random.default_rng(cin)
+    shape, kshape = (2, 9, 11, cin), (3, 3, cin, 16)
+    if pattern == "uniform":
+        x = np.full(shape, -128, np.int8)
+        k = np.full(kshape, 127, np.int8)
+    else:
+        x = np.where(rng.random(shape) < 0.5, -128, 127).astype(np.int8)
+        k = np.where(rng.random(kshape) < 0.5, -127, 127).astype(np.int8)
+    xp = np.pad(x.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = sum(np.einsum("bhwc,co->bhwo", xp[:, dy:dy + 9, dx:dx + 11],
+                         k[dy, dx].astype(np.int64))
+               for dy in range(3) for dx in range(3))
+    got = conv2d_same_i8_plain(T(x), T(k))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    if pattern == "uniform":
+        assert np.abs(want).max() == 9 * cin * 128 * 127
 
 
 def test_pool_first_epilogue_equals_plain():
@@ -381,18 +418,48 @@ def test_cli_int8_matches_golden_and_jax_csv(tmp_path, clip, ref):
     assert _read(out) == _read(theirs) == _read(os.path.join(GOLDEN, ref))
 
 
+@pytest.fixture(scope="module")
+def corpus_adv_classes():
+    """``corpus_adv`` classified once per rung on each side, for the gate
+    and the probe below: the port's ``(conf, pred)`` at float32 and
+    ``int8_mxu`` (``classify_video`` on the CPU, as the CLI runs it), and
+    JAX's ``pred`` at both."""
+    clip = os.path.join(CORPUS, "corpus_adv.mp4")
+    cpu = torch.device("cpu")
+    ours, theirs = {}, {}
+    for precision in ("float32", "int8_mxu"):
+        conf, pred, _ = classify_video(clip, device=cpu, print_every=0,
+                                       transfer="bgr", precision=precision)
+        ours[precision] = (conf, pred)
+        _, theirs[precision], _ = jax_classify(clip, print_every=0,
+                                               precision=precision,
+                                               transfer="bgr")
+    return ours, theirs
+
+
 @pytest.mark.parametrize("name,n,frame_min", [
     ("corpus_a", 590, 0.99), ("corpus_adv", 593, 0.96),
     ("corpus_nat", 590, 1.0)])
-def test_int8_holds_the_corpus_gates(tmp_path, name, n, frame_min):
+def test_int8_holds_the_corpus_gates(tmp_path, request, name, n, frame_min):
     """The JAX package's gates at ``int8_mxu``
     (``tests/test_eval_corpus.py:61-66, 132-142, 147-165``): frame
     accuracy >= 0.99 on ``corpus_a``, >= 0.96 on ``corpus_adv``, every
-    frame on ``corpus_nat``; boundary precision and recall >= 0.90."""
+    frame on ``corpus_nat``; boundary precision and recall >= 0.90.
+    ``corpus_adv``'s CSV comes from the ``corpus_adv_classes`` fixture's
+    classes through the port's run-length table and glue (``_smooth``,
+    what the CLI runs after ``classify_video``); the others from the
+    CLI."""
     out = str(tmp_path / "out.csv")
-    cli.main([os.path.join(CORPUS, f"{name}.mp4"), "--cpu", "--transfer",
-              "bgr", "--precision", "int8_mxu", "--output_path", out,
-              "--print-every", "0"])
+    clip = os.path.join(CORPUS, f"{name}.mp4")
+    if name == "corpus_adv":
+        ours, _ = request.getfixturevalue("corpus_adv_classes")
+        ns = cli.build_parser().parse_args([clip])  # the CLI's thresholds
+        _smooth(*ours["int8_mxu"], ns.base_threshold,
+                ns.blank_threshold).write_csv(out)
+    else:
+        cli.main([clip, "--cpu",
+                  "--transfer", "bgr", "--precision", "int8_mxu",
+                  "--output_path", out, "--print-every", "0"])
     res = evaluate(out, os.path.join(CORPUS, f"{name}_truth.csv"), n,
                    tolerance=30)
     assert res["frame_accuracy"] >= frame_min, res
@@ -400,23 +467,17 @@ def test_int8_holds_the_corpus_gates(tmp_path, name, n, frame_min):
     assert res["boundary_recall"] >= 0.90, res
 
 
-def test_adversarial_clip_probes_int8_weight_quantization():
+def test_adversarial_clip_probes_int8_weight_quantization(
+        corpus_adv_classes):
     """``tests/test_eval_corpus.py:101-117`` on the port: before
     smoothing, ``int8_mxu``'s classes differ from float32's on at least
     one frame of ``corpus_adv``, and only inside its two designed
     near-boundary blocks; the frames that differ are the JAX rung's."""
-    clip = os.path.join(CORPUS, "corpus_adv.mp4")
-    cpu = torch.device("cpu")
-    _, p32, _ = classify_video(clip, device=cpu, print_every=0,
-                               transfer="bgr", precision="float32")
-    _, pi8, _ = classify_video(clip, device=cpu, print_every=0,
-                               transfer="bgr", precision="int8_mxu")
+    ours, theirs = corpus_adv_classes
+    p32, pi8 = ours["float32"][1], ours["int8_mxu"][1]
     diff = np.nonzero(p32 != pi8)[0]
     assert diff.size >= 1, "corpus_adv no longer probes int8_mxu"
     for f in diff:
         assert any(lo <= f < hi for lo, hi in [(150, 159), (319, 328)]), f
-    _, jp32, _ = jax_classify(clip, print_every=0, precision="float32",
-                              transfer="bgr")
-    _, jpi8, _ = jax_classify(clip, print_every=0, precision="int8_mxu",
-                              transfer="bgr")
-    np.testing.assert_array_equal(diff, np.nonzero(jp32 != jpi8)[0])
+    np.testing.assert_array_equal(
+        diff, np.nonzero(theirs["float32"] != theirs["int8_mxu"])[0])
