@@ -218,7 +218,19 @@ Phases, each of which raises on failure:
              ``segment_videos``' split of two 2,000-frame 1280x720 clips
              a card over a process a card (the golden clips over one
              card twice where there is one), the one-card CSVs byte for
-             byte, walls of both.
+             byte, walls of both; (g) ``dryrun_multichip``'s
+             tensor-parallel part: each block-kernel instance of the
+             tensor-parallel step at 24 and 12 output channels against
+             its plain version (``F32_TOL``, ``xla_check``, max diff 0 for
+             int8), then the slice stream through
+             ``make_sharded_classify_step(..., tensor_parallel=True)`` over
+             ``[cuda:0] * 4`` at model 2 (every rung) and model 4
+             (float32, ``int8_mxu``), and, with two or more cards, over the
+             cards at model 2 (and 4): classes and CSV bytes of the
+             unsharded step, conf within ``PARALLEL_CONF_TOL``, each block
+             kernel launched data rows x model columns times a batch a
+             layer, ms a batch and frames/s of the unsharded,
+             data-parallel and tensor-parallel steps.
 
 Before it prints a result the run stops every process it started (the
 decode subprocesses and ``multiprocessing``'s resource tracker).  Then
@@ -2909,7 +2921,13 @@ def phase_serve(dev, workdir):
 # rounding may land one bf16 ulp apart, as between the card and the CPU:
 # the rung's QUANT_CONF_TOL (2.403e-4 measured over 2 shards of one
 # card, 6.504e-3 over 4 cards).
-PARALLEL_CONF_TOL = {"float32": 1e-5, "int8_mxu": QUANT_CONF_TOL}
+# The tensor-parallel step (g) against the unsharded one: float32 within
+# the same 1e-5; at the other rungs QUANT_CONF_TOL, for the same cause
+# (the hidden FC layer's GEMM of 16 or 8 output columns sums in another
+# order than one of 32).
+PARALLEL_CONF_TOL = {p: 1e-5 if p == "float32" else QUANT_CONF_TOL
+                     for p in ("float32", "bfloat16", "bfloat16_full",
+                               "uint8_pool", "uint8_chain", "int8_mxu")}
 PARALLEL_PARAM_TOL = 2e-3  # a first AdamW step: 2 * lr where a near-zero
                            # gradient's sign differs (test_parallel.py),
                            # plus two ulps of the parameter (the roundings
@@ -3077,6 +3095,197 @@ def parallel_classify(cards, frames, workdir) -> dict:
             f"{ {k: v for k, v in launches.items() if v} }; frames/s on "
             f"{len(long)} frames (best of 2): {fps}")
         out[precision] = {"conf_err": err, "fps": fps}
+    return out
+
+
+# (g) The tensor-parallel runs on one card: (rung, model columns) over
+# [cuda:0] * 4, so model 2 has 2 data rows and model 4 one.
+TP_RUNS = (("float32", 2), ("float32", 4), ("int8_mxu", 2),
+           ("int8_mxu", 4), ("bfloat16", 2), ("bfloat16_full", 2),
+           ("uint8_pool", 2), ("uint8_chain", 2))
+# The block instances the tensor-parallel step launches, each at 24
+# output channels (model 2) and 12 (model 4).
+TP_INSTANCES = ("conv1_block[f32]", "conv1_block[bf16_xla]",
+                "conv1_block[i8]", "conv_block[f32]",
+                "conv_block[bf16_operands]", "conv_block[bf16_xla]",
+                "conv_block[bf16_xla_f32]", "conv_block[i8]")
+
+
+def tensor_parallel_kernels(dev, frames) -> dict:
+    """Every block-kernel instance the tensor-parallel step launches, at
+    the widths it launches them: the step at each kernel rung at model 2
+    and 4 over ``[dev] * model`` on one batch, with the blocks' wrappers
+    (``models.layers``' names) swapped for ones that also run the plain
+    version on the same arguments and hold the kernel to it: ``F32_TOL``
+    for ``f32`` and ``bf16_operands``, ``tolerance.xla_check`` for the
+    ``bf16_xla`` instances, a max diff of 0 for the int8 ones.  Returns
+    ``{(instance, output channels): worst error}``; raises where one
+    disagrees or one of ``TP_INSTANCES`` at 24 or 12 channels was not
+    launched."""
+    from cut_detection_tpu_torch.models import layers
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.ops.kernels import conv_block as cb
+    from cut_detection_tpu_torch.ops.kernels import conv_block_i8 as k8
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+        conv1_block_plain,
+    )
+    from cut_detection_tpu_torch.ops.kernels.conv1_block import (
+        instance as conv1_instance,
+    )
+    from cut_detection_tpu_torch.ops.kernels.tolerance import xla_check
+    from cut_detection_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_classify_step,
+    )
+
+    errs = {}
+
+    def held(name, fn, plain, inst_of):
+        def call(x, kernel, *args, **kw):
+            got = fn(x, kernel, *args, **kw)
+            want = plain(x, kernel, *args, **kw)
+            inst = f"{name}[{inst_of(kw)}]"
+            err = float((got.float() - want.float()).abs().max())
+            if inst.endswith("[i8]"):
+                ok = err == 0
+            elif "bf16_xla" in inst:
+                ok = xla_check(got, want, args[2], args[1], args[0])[0]
+            else:
+                ok = err <= F32_TOL
+            if not ok:
+                raise AssertionError(f"tensor parallel: {inst} at "
+                                     f"{tuple(x.shape)} -> "
+                                     f"{kernel.shape[-1]} channels off its "
+                                     f"plain version by {err}")
+            key = (inst, kernel.shape[-1])
+            errs[key] = max(errs.get(key, 0.0), err)
+            return got
+        return call
+
+    swaps = {
+        "conv1_block": held("conv1_block", layers.conv1_block,
+                            conv1_block_plain, lambda kw: conv1_instance(
+                                kw.get("compute_dtype"),
+                                kw.get("numerics", "pallas"))[0]),
+        "conv_block": held("conv_block", layers.conv_block,
+                           cb.conv_block_plain, lambda kw: cb.instance(
+                               kw.get("compute_dtype"),
+                               kw.get("out_dtype", torch.float32),
+                               kw.get("numerics", "pallas"))[0]),
+        "conv1_block_i8": held("conv1_block", layers.conv1_block_i8,
+                               k8.conv1_block_i8_plain, lambda kw: "i8"),
+        "conv_block_i8": held("conv_block", layers.conv_block_i8,
+                              k8.conv_block_i8_plain, lambda kw: "i8"),
+    }
+    saved = {name: getattr(layers, name) for name in swaps}
+    x = torch.from_numpy(frames).to(dev)
+    try:
+        for name, fn in swaps.items():
+            setattr(layers, name, fn)
+        for precision in ("float32", "bfloat16", "bfloat16_full",
+                          "int8_mxu"):
+            net, _ = load_default_net(dev, precision)
+            for model in (2, 4):
+                make_sharded_classify_step(
+                    net, make_mesh([dev] * model, model_parallel=model),
+                    tensor_parallel=True)(x)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+    missing = {(i, c) for i in TP_INSTANCES for c in (24, 12)} - set(errs)
+    if missing:
+        raise AssertionError(f"tensor parallel: not launched {missing}")
+    return errs
+
+
+def parallel_tensor(cards, frames, workdir) -> dict:
+    """(g) ``dryrun_multichip``'s tensor-parallel part
+    (``__graft_entry__.py:72-84``): first each block-kernel instance of
+    the step at 24 and 12 output channels against its plain version
+    (``tensor_parallel_kernels``); then the slice stream through
+    ``make_sharded_classify_step(..., tensor_parallel=True)`` at each of
+    ``TP_RUNS`` over ``[cuda:0] * 4`` and, with two or more cards, at
+    float32 and ``int8_mxu`` at model 2 over the cards (and model 4 over
+    four): the classes and CSV bytes of the unsharded step on the first
+    card, conf within ``PARALLEL_CONF_TOL``, each block kernel launched
+    (data rows x model columns) times a batch for each layer that runs
+    it, and ms a batch and frames/s of the unsharded, data-parallel (the
+    same mesh, frames over its data rows) and tensor-parallel steps on a
+    resident batch (median of 20)."""
+    from cut_detection_tpu_torch.models.assembly import load_default_net
+    from cut_detection_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_classify_step,
+    )
+    from cut_detection_tpu_torch.pipeline import make_classify_step
+
+    errs = tensor_parallel_kernels(cards[0], frames[:BATCH])
+    log("parallel (g): block kernels at the tensor-parallel widths against "
+        "their plain versions, worst error by (instance, Cout): "
+        + ", ".join(f"{i} {c}: {e:.3e}" for (i, c), e in sorted(
+            errs.items())))
+    runs = [(p, make_mesh([cards[0]] * 4, model_parallel=m))
+            for p, m in TP_RUNS]
+    n = len(cards)
+    if n >= 2:
+        runs += [(p, make_mesh(cards[:n - n % 2], model_parallel=2))
+                 for p in ("float32", "int8_mxu")]
+    if n >= 4:
+        runs += [(p, make_mesh(cards[:n - n % 4], model_parallel=4))
+                 for p in ("float32", "int8_mxu")]
+    batches = [frames[i:i + BATCH] for i in range(0, len(frames), BATCH)]
+    batches[-1] = np.concatenate([batches[-1], np.zeros(
+        (BATCH - len(batches[-1]), *frames.shape[1:]), np.uint8)])
+    resident = torch.from_numpy(batches[0]).to(cards[0])
+    # "launches": by rung, the one-card model-2 run's, for the kernel rows.
+    out = {"kernels": {f"{i} {c}": e for (i, c), e in errs.items()},
+           "runs": {}, "launches": {}}
+    for precision, mesh in runs:
+        net, _ = load_default_net(cards[0], precision)
+        one = make_classify_step(net)
+        tp = make_sharded_classify_step(net, mesh, tensor_parallel=True)
+
+        def stream(step, upload):
+            got = [step(torch.from_numpy(b).to(cards[0]) if upload
+                        else b) for b in batches]
+            return tuple(torch.cat([g[k] for g in got]).cpu().numpy()
+                         [:len(frames)] for k in range(2))
+
+        conf1, pred1 = stream(one, True)
+        zero_launches()
+        conf, pred = stream(tp, False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        rows, cols = mesh.shape["data"], mesh.shape["model"]
+        where = (f"{precision} model {cols} x data {rows} over "
+                 f"{sorted({str(d) for d in mesh.devices})}")
+        check_launches(f"parallel (g) {where}", launches,
+                       per_batch(len(batches) * rows * cols, precision))
+        if not np.array_equal(pred, pred1):
+            raise AssertionError(f"parallel (g) {where}: classes differ "
+                                 "from the unsharded step")
+        err = float(np.abs(conf - conf1).max())
+        if err > PARALLEL_CONF_TOL[precision]:
+            raise AssertionError(f"parallel (g) {where}: conf off by {err}")
+        if (_csv_bytes(conf, pred, os.path.join(workdir, "tp.csv"))
+                != _csv_bytes(conf1, pred1, os.path.join(workdir,
+                                                          "tp1.csv"))):
+            raise AssertionError(f"parallel (g) {where}: CSV differs")
+        dp = make_classify_step(net, mesh=mesh)
+        ms = {tag: host_ms(lambda: step(resident))
+              for tag, step in (("unsharded", one), ("data_parallel", dp),
+                                ("tensor_parallel", tp))}
+        fps = {tag: round(1e3 * BATCH / t, 1) for tag, t in ms.items()}
+        log(f"parallel (g): {where}, {len(batches)} batches: classes and "
+            f"CSV identical, conf max_abs_err {err:.3e} (tol "
+            f"{PARALLEL_CONF_TOL[precision]:.0e}), launches "
+            f"{ {k: v for k, v in launches.items() if v} }; ms a batch "
+            f"{ {k: round(v, 4) for k, v in ms.items()} }, frames/s {fps}")
+        out["runs"][where] = {"conf_err": err, "launches": {
+            k: v for k, v in launches.items() if v}, "ms": ms, "fps": fps}
+        if cols == 2 and len(set(mesh.devices)) == 1:
+            out["launches"][precision] = launches
     return out
 
 
@@ -3338,17 +3547,18 @@ def parallel_split_videos(workdir, devices) -> dict:
 
 def phase_parallel(dev, frames, workdir):
     """Several cards and several processes: (a) the sharded classify
-    loop, (b) the 2-rank training steps, (c) ``segment_videos
-    --multi-host``, (f) ``segment_videos``' split of the videos a process
-    a card (one card twice where there is one), and (d), with two or
-    more cards, every kernel route launched on ``cuda:1`` while
-    ``cuda:0`` is current and (e) the training CLI's ``--data-parallel``
-    over every card."""
+    loop, (g) the tensor-parallel step, (b) the 2-rank training steps, (c)
+    ``segment_videos --multi-host``, (f) ``segment_videos``' split of the
+    videos a process a card (one card twice where there is one), and
+    (d), with two or more cards, every kernel route launched on
+    ``cuda:1`` while ``cuda:0`` is current and (e) the training CLI's
+    ``--data-parallel`` over every card."""
     import concurrent.futures
 
     n = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(n)]
-    out = {"cards": n, "classify": parallel_classify(cards, frames, workdir)}
+    out = {"cards": n, "classify": parallel_classify(cards, frames, workdir),
+           "tensor": parallel_tensor(cards, frames, workdir)}
     # (b) and (c) wait mostly on their processes' start-up: side by side.
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         train = pool.submit(parallel_train, dev, workdir)
@@ -3508,13 +3718,19 @@ def run() -> tuple[str, list[dict]]:
         timed("train", phase_train, dev, card, wd)
         timed("tools", phase_tools, dev, card, wd)
         timed("scripts", phase_scripts, dev, card, wd)
-        timed("parallel", phase_parallel, dev, frames, wd)
+        tp = timed("parallel", phase_parallel, dev, frames,
+                   wd)["tensor"]["launches"]
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "replaces_kind": "xla"
                      if name in XLA_ROWS else "pallas",
                      "launches": paths[path][name], **kres[name]})
+        if tp.get(path, {}).get(name):
+            # The tensor-parallel path's launches (parallel (g), model 2
+            # over one card, 2 data rows): a batch of the slice stream
+            # launches each layer's kernel 4 times.
+            rows[-1]["tensor_parallel_launches"] = tp[path][name]
     return card, rows
 
 

@@ -81,14 +81,22 @@ class FrameConvNet(nn.Module):
             affine = None
             for layer, ring in zip(self.conv_layers, rings):
                 x, affine = block(layer, x, affine, ring)
-            # int8 codes too: their affine's offset holds the +128 * a.
-            x = dequantize_u8(x, affine)
+            return self.head(x, affine)
         elif rings is not None:
             raise ValueError(f"rings are uint8_chain's and int8_mxu's; this "
                              f"net runs {self.compute_dtype}")
         else:
             for layer in self.conv_layers:
                 x = layer(x)
+        return self.head(x)
+
+    def head(self, x: torch.Tensor, affine=None) -> torch.Tensor:
+        """The last block's output -> features: the chained rungs' codes
+        dequantized with their pending ``affine`` first, then the adaptive
+        pool and the flatten in NCHW order."""
+        if affine is not None:
+            # int8 codes too: their affine's offset holds the +128 * a.
+            x = dequantize_u8(x, affine)
         x = adaptive_avg_pool(x.float(), self.cfg.average_pool_size)
         return flatten_nchw_order(x)
 

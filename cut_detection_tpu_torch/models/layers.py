@@ -328,6 +328,23 @@ class ConvBlock(nn.Module):
         self._i8_frozen = {}
         self._frozen = self.kernel_args()
 
+    def freeze_slice(self, whole: "ConvBlock", channels: slice) -> None:
+        """Freeze this block, which holds output channels ``channels`` of
+        the frozen block ``whole`` (tensor parallelism,
+        ``parallel.sharding.shard_bundle``), with ``whole``'s kernel
+        arguments and the int8 ones it computed so far, sliced: what mixes
+        channels, such as a pending affine folded along the input axis
+        before the int8 kernel is quantized, comes from the whole layer,
+        and each channel's arguments are the whole block's bit for bit."""
+        if whole._frozen is None:
+            raise ValueError("freeze_slice takes a frozen block (freeze())")
+
+        def cut(args):
+            return tuple(t[..., channels].contiguous() for t in args)
+
+        self._frozen = cut(whole._frozen)
+        self._i8_frozen = {k: cut(v) for k, v in whole._i8_frozen.items()}
+
     def init_weights(self, generator) -> None:
         """The JAX package's initial values (``init_conv_block``), drawn
         from ``generator``: the kernel, then the bias."""

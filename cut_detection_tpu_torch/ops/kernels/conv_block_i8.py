@@ -104,8 +104,10 @@ def _launch(entry, x, kernel, so, ring, scale, *, cin_words: bool):
                       device=dev)
     if b == 0 or h < 3 or w < 3:
         return out, False  # no pool window: nothing to launch
-    if cout % 8:
-        raise ValueError(f"{entry} needs a multiple of 8 output channels, "
+    # The mid-stack route stores four channels' codes as one word and
+    # reads the ring, so and scale as float4 (the .cu's Cout % 4 == 0).
+    if cout % 4:
+        raise ValueError(f"{entry} needs a multiple of 4 output channels, "
                          f"got {cout}")
     if cin_words and cin % 4:
         raise ValueError(f"{entry} needs a multiple of 4 input channels, "

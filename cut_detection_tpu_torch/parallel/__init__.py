@@ -1,9 +1,12 @@
 """Several devices and several processes (counterpart of
 ``cut_detection_tpu/parallel/``).
 
-- ``mesh``: ``make_mesh`` lists the devices of one process's data axis.
-- ``sharding``: data-parallel inference over a mesh, one frozen replica
-  of the net per device, shards in and outputs out in frame order.
+- ``mesh``: ``make_mesh`` lays one process's devices out as a (data,
+  model) grid.
+- ``sharding``: inference over a mesh, shards in and outputs out in
+  frame order: data-parallel, one frozen replica of the net a data row,
+  or tensor-parallel, each grid entry holding its slice of every layer's
+  channels (``model_param_specs``, ``shard_bundle``).
 - ``distributed``: the ``torch.distributed`` group (one rank per card)
   behind multi-host work partitioning and data-parallel training, and
   training's collectives.
@@ -19,8 +22,10 @@ from cut_detection_tpu_torch.parallel.mesh import (
 )
 from cut_detection_tpu_torch.parallel.sharding import (
     make_sharded_classify_step,
+    model_param_specs,
     replicate,
     shard_batch,
+    shard_bundle,
 )
 
 __all__ = [
@@ -29,5 +34,7 @@ __all__ = [
     "mesh_shape_for",
     "replicate",
     "shard_batch",
+    "model_param_specs",
+    "shard_bundle",
     "make_sharded_classify_step",
 ]

@@ -145,10 +145,11 @@ def make_classify_step(net: GluedNet, *,
     -> ``(conf f32 [B], pred int32 [B])`` on the same device.
 
     With ``mesh`` (``parallel.make_mesh``) each batch, on the host or any
-    device, splits over the mesh's devices, each running this step on a
-    replica of its own (``parallel.sharding.sharded``), and the outputs
-    come back to the mesh's first device in frame order; ``B`` must
-    divide over the mesh.
+    device, splits over the mesh's data rows, each running this step on
+    a replica of its own on the row's first device
+    (``parallel.sharding.sharded``), and the outputs come back to the
+    mesh's first device in frame order; ``B`` must divide over the data
+    rows.
 
     ``yuv_dims=(h, w)``: the frames are packed planar YUV420 vectors
     ``[B, yuv420_nbytes(h, w)]`` at model resolution, converted to BGR
@@ -428,8 +429,8 @@ def classify_video(
     This call owns it: it is closed on every path, error paths included.
 
     ``mesh`` (``parallel.make_mesh``): each batch splits over the mesh's
-    devices (:func:`make_classify_step`); ``batch_size`` must divide over
-    them, which is checked before any decode starts.
+    data rows (:func:`make_classify_step`); ``batch_size`` must divide
+    over them, which is checked before any decode starts.
     """
     try:
         if mesh is not None and batch_size % mesh.shape["data"]:

@@ -196,9 +196,10 @@ def test_conv_block_i8_kernel(cuda_dev, layer, h, w):
     assert torch.equal(got, conv_block_i8_plain(x, k, so, ring, scale))
 
 
-@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 16), (12, 48), (64, 64)])
+@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 16), (12, 48), (64, 64),
+                                      (4, 4), (48, 12), (16, 20)])
 def test_conv_block_i8_kernel_widths(cuda_dev, cin, cout):
-    """Other widths (Cin % 4 == 0, Cout % 8 == 0), with random weights,
+    """Other widths (Cin % 4 == 0, Cout % 4 == 0), with random weights,
     scales and rings that drive codes to both ends."""
     rng = np.random.default_rng(cin + cout)
     h, w = 20, 31
@@ -323,6 +324,19 @@ def test_conv1_block_i8_kernel_unaligned_input(cuda_dev):
     xo = _offset_copy(x, 4)
     assert torch.equal(conv1_block_i8(xo, k, so, ring, scale),
                        conv1_block_i8_plain(xo, k, so, ring, scale))
+
+
+def test_i8_wrappers_refuse_a_width_off_4(cuda_dev):
+    """The int8 kernels store four channels' codes as a word and read the
+    ring and scales as float4: a Cout that is no multiple of 4 raises."""
+    rng = np.random.default_rng(10)
+    for fn, cin, dtype in ((conv_block_i8, 8, torch.int8),
+                           (conv1_block_i8, 3, torch.uint8)):
+        x = torch.zeros(1, 6, 9, cin, dtype=dtype, device=cuda_dev)
+        k, so, ring, scale = (t.to(cuda_dev) for t in _i8_random_args(
+            rng, x, 10))
+        with pytest.raises(ValueError, match="multiple of 4 output"):
+            fn(x, k, so, ring, scale)
 
 
 def test_i8_wrappers_reject_bad_arguments(cuda_dev):
@@ -1096,3 +1110,114 @@ def test_full_game_bench_on_card_matches_cpu(cuda_dev, tmp_path,
     assert records["cpu"]["hardware"].startswith("cpu")
     mode = records["card"]["modes"]["bgr_float32"]
     assert mode["frames"] == 512 and mode["decode_failures"] == 0
+
+
+# The output channels of the tensor-parallel step's block slices: the
+# prod net's 48 over 2 and over 4 model columns.
+TP_WIDTHS = [24, 12]
+# The mid-stack instances that step launches (its rungs' own).
+TP_KEYS = [key for key, (name, _) in INSTANCES.items()
+           if name in ("f32", "bf16_operands", "bf16_xla", "bf16_xla_f32")]
+
+
+def _tp_slice(args, cout):
+    """Model column 1's slice of ``cout`` output channels of a block's
+    kernel arguments (each cut on its last axis)."""
+    return [t[..., cout:2 * cout].contiguous() for t in args]
+
+
+@pytest.mark.parametrize("cout", TP_WIDTHS)
+@pytest.mark.parametrize("precision", ["float32", "bfloat16_full"])
+def test_conv1_block_kernel_at_tensor_parallel_widths(cuda_dev, precision,
+                                                      cout):
+    """Layer 1's ``f32`` and ``bf16_xla`` instances on a slice of the prod
+    net's folded layer 1, as a tensor-parallel column holds it, against
+    their plain versions at the main path's shape."""
+    kernel, bias, scale, offset = _tp_slice(
+        _layer1_args(cuda_dev, precision), cout)
+    x = T(np.random.default_rng(cout).integers(
+        0, 256, (16, 144, 256, 3), dtype=np.uint8)).to(cuda_dev)
+    kw = {"compute_dtype": None if precision == "float32" else precision,
+          "numerics": "xla"}
+    n = conv1_block.launches
+    got = conv1_block(x, kernel, bias, scale, offset, **kw)
+    want = conv1_block_plain(x, kernel, bias, scale, offset, **kw)
+    torch.cuda.synchronize()
+    assert conv1_block.launches == n + 1
+    assert got.shape == (16, 48, 85, cout)
+    if precision == "float32":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        _assert_within_bf16_crossing(got, want, offset, (scale, bias))
+
+
+@pytest.mark.parametrize("cout", TP_WIDTHS)
+@pytest.mark.parametrize("h,w", [(48, 85), (16, 28)])
+@pytest.mark.parametrize("key", TP_KEYS)
+def test_conv_block_kernel_at_tensor_parallel_widths(cuda_dev, key, h, w,
+                                                     cout):
+    """The mid-stack instances the tensor-parallel step launches, on the
+    whole 48 input channels and ``cout`` output channels."""
+    _check_instance(key, 4, h, w, 48, cout, cuda_dev)
+
+
+@pytest.mark.parametrize("cout", TP_WIDTHS)
+def test_conv1_block_i8_kernel_at_tensor_parallel_widths(cuda_dev, cout):
+    """``conv1_block[i8]`` on a column's slice of the prod net's folded
+    int8 layer 1 (weights, scales and ring from the whole layer): codes
+    equal to the plain version's."""
+    args = _tp_slice(_i8_layers(cuda_dev)[0], cout)
+    x = T(np.random.default_rng(cout).integers(
+        0, 256, (16, 144, 256, 3), dtype=np.uint8)).to(cuda_dev)
+    n = conv1_block_i8.launches
+    got = conv1_block_i8(x, *args)
+    assert conv1_block_i8.launches == n + 1
+    assert got.shape == (16, 48, 85, cout)
+    assert torch.equal(got, conv1_block_i8_plain(x, *args))
+
+
+@pytest.mark.parametrize("cout", TP_WIDTHS)
+@pytest.mark.parametrize("layer,h,w", [(1, 48, 85), (2, 16, 28)])
+def test_conv_block_i8_kernel_at_tensor_parallel_widths(cuda_dev, layer, h,
+                                                        w, cout):
+    """``conv_block[i8]`` on the whole layer's 48 input codes and a
+    column's ``cout`` output channels of the prod net's int8 layer."""
+    args = _tp_slice(_i8_layers(cuda_dev)[layer], cout)
+    x = T(np.random.default_rng(h + cout).integers(
+        -128, 128, (16, h, w, 48), dtype=np.int8)).to(cuda_dev)
+    n = conv_block_i8.launches
+    got = conv_block_i8(x, *args)
+    assert conv_block_i8.launches == n + 1
+    assert torch.equal(got, conv_block_i8_plain(x, *args))
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8_mxu"])
+def test_tensor_parallel_over_one_card(cuda_dev, precision):
+    """``make_sharded_classify_step(..., tensor_parallel=True)`` over
+    ``[cuda:0] * 2`` at model 2: each block runs on two 24-channel slices
+    and the channels are gathered after it; the classes of the unsharded
+    step, conf within ``chip_smoke.PARALLEL_CONF_TOL``, each layer's
+    kernel launched once a column."""
+    from cut_detection_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_classify_step,
+    )
+
+    net, _ = load_default_net(cuda_dev, precision)
+    x = T(np.random.default_rng(9).integers(0, 256, (128, 144, 256, 3),
+                                            dtype=np.uint8))
+    conf1, pred1 = make_classify_step(net)(x.to(cuda_dev))
+    step = make_sharded_classify_step(
+        net, make_mesh([cuda_dev, cuda_dev], model_parallel=2),
+        tensor_parallel=True)
+    kernels = ((conv1_block_i8, conv_block_i8) if precision == "int8_mxu"
+               else (conv1_block, conv_block))
+    before = [k.launches for k in kernels]
+    conf, pred = step(x)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 4]
+    assert conf.device == conf1.device and pred.dtype == torch.int32
+    torch.testing.assert_close(conf, conf1, rtol=0,
+                               atol=1e-5 if precision == "float32"
+                               else QUANT_CONF_TOL)
+    assert torch.equal(pred, pred1)

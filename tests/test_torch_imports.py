@@ -173,7 +173,8 @@ def test_parallel_runs_without_jax(tmp_path):
     """``parallel/`` imports only the port: with jax and the JAX package
     blocked, its modules import, the sharded classify step runs over a
     mesh of two CPU entries, and ``initialize`` outside a group is the
-    single-process no-op."""
+    single-process no-op; the tensor-parallel step runs over a model-2
+    mesh of four CPU entries."""
     proc = _run("""
         import importlib, os
         for name in ("mesh", "sharding", "distributed", "local_cluster"):
@@ -184,6 +185,12 @@ def test_parallel_runs_without_jax(tmp_path):
             distributed, make_mesh, make_sharded_classify_step)
         net, _ = load_default_net("cpu")
         conf, pred = make_sharded_classify_step(net, make_mesh(["cpu"] * 2))(
+            np.zeros((4, 36, 64, 3), np.uint8))
+        assert conf.shape == (4,) and pred.shape == (4,)
+        mesh = make_mesh(["cpu"] * 4, model_parallel=2)
+        assert mesh.shape == {"data": 2, "model": 2}
+        conf, pred = make_sharded_classify_step(net, mesh,
+                                                tensor_parallel=True)(
             np.zeros((4, 36, 64, 3), np.uint8))
         assert conf.shape == (4,) and pred.shape == (4,)
         for k in ("RANK", "WORLD_SIZE"):

@@ -72,8 +72,8 @@ def test_make_mesh(monkeypatch):
     assert MESH.shape == {"data": 8, "model": 1}
     assert MESH.devices == (CPU,) * 8 and hash(MESH) == hash(make_mesh(
         ["cpu"] * 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_mesh([CPU] * 8, model_parallel=2)
+    assert make_mesh([CPU] * 8, model_parallel=2).shape == {"data": 4,
+                                                            "model": 2}
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
