@@ -118,16 +118,6 @@ def _device_compute(device, timeout: float) -> dict:
     return {"roundtrip": "ok"}
 
 
-def _launch_counts() -> dict:
-    from cut_detection_tpu_torch.ops.kernels.conv1_block import conv1_block
-    from cut_detection_tpu_torch.ops.kernels.conv_block import conv_block
-
-    return {f"{name}[{inst}]": n
-            for name, fn in (("conv1_block", conv1_block),
-                             ("conv_block", conv_block))
-            for inst, n in fn.instance_launches.items()}
-
-
 def _classify_step(device, timeout: float) -> dict:
     from cut_detection_tpu_torch.utils.device import bounded_call
 
@@ -135,15 +125,16 @@ def _classify_step(device, timeout: float) -> dict:
         import torch
 
         from cut_detection_tpu_torch.models.assembly import load_default_net
+        from cut_detection_tpu_torch.ops.kernels import launch_counts
         from cut_detection_tpu_torch.pipeline import make_classify_step
 
         net, _ = load_default_net(device)
         step = make_classify_step(net)
-        before = _launch_counts()
+        before = launch_counts()
         conf, pred = step(torch.zeros((8, 144, 256, 3), dtype=torch.uint8,
                                       device=device))
         conf.cpu(), pred.cpu()
-        launches = {k: n - before[k] for k, n in _launch_counts().items()
+        launches = {k: n - before[k] for k, n in launch_counts().items()
                     if n != before[k]}
         return {"params": net.num_params(), "launches": launches}
 

@@ -46,6 +46,7 @@ from cut_detection_tpu_torch.models.assembly import (
 )
 from cut_detection_tpu_torch.models.layers import ConvBlock, FCBlock
 from cut_detection_tpu_torch.parallel.mesh import Mesh
+from cut_detection_tpu_torch.utils.profiling import span
 
 
 def _check_divides(mesh: Mesh, n: int) -> None:
@@ -86,7 +87,9 @@ def sharded(mesh: Mesh, steps: list):
     first = mesh.devices[0]
 
     def step(frames):
-        outs = [s(x) for s, x in zip(steps, shard_batch(mesh, frames))]
+        with span("cutdet.classify.upload"):
+            shards = shard_batch(mesh, frames)
+        outs = [s(x) for s, x in zip(steps, shards)]
         return tuple(torch.cat([o[k].to(first) for o in outs])
                      for k in range(2))
 

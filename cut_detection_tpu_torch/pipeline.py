@@ -35,6 +35,7 @@ growing list of per-batch results.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import typing
@@ -67,7 +68,7 @@ from cut_detection_tpu_torch.ops.kernels.yuv420_to_bgr import yuv420_to_bgr
 from cut_detection_tpu_torch.ops.preprocess import normalize_frames
 from cut_detection_tpu_torch.ops.resize import resize_bilinear
 from cut_detection_tpu_torch.segmentation.rle import Segmentation
-from cut_detection_tpu_torch.utils.profiling import ThroughputMeter
+from cut_detection_tpu_torch.utils.profiling import ThroughputMeter, span
 
 logger = logging.getLogger(__name__)
 
@@ -569,29 +570,44 @@ def classify_batches(batches, net: GluedNet, *, batch_size: int = 128,
                                device=device)
         pred_buf = torch.empty(n_batches * batch_size, dtype=torch.int32,
                                device=device)
-        for i, (batch, valid) in enumerate(batches):
-            lo, hi = i * batch_size, (i + 1) * batch_size
-            if hi > conf_buf.shape[0]:
-                conf_buf = torch.cat([conf_buf, torch.empty_like(conf_buf)])
-                pred_buf = torch.cat([pred_buf, torch.empty_like(pred_buf)])
-            # Under a mesh the step uploads each shard to its device.
-            x = torch.from_numpy(batch)
-            conf, pred = step(x if mesh is not None else x.to(device))
-            conf_buf[lo:hi] = conf
-            pred_buf[lo:hi] = pred
-            valids.append(valid)
-            meter.update(valid)
-            stats.batches += 1
-            stats.frames += valid
-            if print_every > 0 and i % print_every == print_every - 1:
-                logger.info("Scored batch %d (%d frames).", i + 1, hi)
-            # Reference early-break semantics (segment_video.py:53-58).
-            if frame_limit is not None and hi > frame_limit:
-                break
+        source = iter(batches)
+        for i in itertools.count():
+            with span("cutdet.classify.batch"):
+                with span("cutdet.classify.next"):
+                    item = next(source, None)
+                if item is None:
+                    break
+                batch, valid = item
+                lo, hi = i * batch_size, (i + 1) * batch_size
+                x = torch.from_numpy(batch)
+                if mesh is None:
+                    with span("cutdet.classify.upload"):
+                        x = x.to(device)
+                # Under a mesh the step uploads each shard to its device.
+                with span("cutdet.classify.step"):
+                    conf, pred = step(x)
+                with span("cutdet.classify.store"):
+                    if hi > conf_buf.shape[0]:
+                        conf_buf = torch.cat([conf_buf,
+                                              torch.empty_like(conf_buf)])
+                        pred_buf = torch.cat([pred_buf,
+                                              torch.empty_like(pred_buf)])
+                    conf_buf[lo:hi] = conf
+                    pred_buf[lo:hi] = pred
+                valids.append(valid)
+                meter.update(valid)
+                stats.batches += 1
+                stats.frames += valid
+                if print_every > 0 and i % print_every == print_every - 1:
+                    logger.info("Scored batch %d (%d frames).", i + 1, hi)
+                # Reference early-break semantics (segment_video.py:53-58).
+                if frame_limit is not None and hi > frame_limit:
+                    break
         # One fetch of both vectors; the valid mask drops the padding.
         n = len(valids) * batch_size
-        conf_all = conf_buf[:n].cpu().numpy()
-        pred_all = pred_buf[:n].cpu().numpy()
+        with span("cutdet.classify.fetch"):
+            conf_all = conf_buf[:n].cpu().numpy()
+            pred_all = pred_buf[:n].cpu().numpy()
     finally:
         if hasattr(batches, "close"):  # PrefetchLoader / ShmDecodeLoader
             batches.close()

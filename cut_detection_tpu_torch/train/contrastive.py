@@ -45,6 +45,7 @@ from cut_detection_tpu_torch.train.supervised import (
     rank_rows,
     train_precision,
 )
+from cut_detection_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -86,22 +87,24 @@ def make_contrastive_update(cfg: ContrastiveConfig, group=None):
         net = state.net
         net.train()
         net.set_process_group(group)
-        proj = net(views)
-        rows = None
-        if group is not None:
-            from cut_detection_tpu_torch.parallel.distributed import (
-                all_gather_rows,
-            )
+        with span("cutdet.train.forward"):
+            proj = net(views)
+            rows = None
+            if group is not None:
+                from cut_detection_tpu_torch.parallel.distributed import (
+                    all_gather_rows,
+                )
 
-            # [rank, view, row, D] -> [view, rank, row, D]: the global
-            # [h1; h2] in the single-device row order.
-            world = dist.get_world_size(group)
-            b = proj.shape[0] // 2
-            proj = all_gather_rows(proj, group).reshape(
-                world, 2, b, -1).transpose(0, 1).reshape(2 * world * b, -1)
-            rows = rank_rows(world * b, group)
-        loss, logits_ab, labels = ntxent_loss(
-            proj, temperature=cfg.temperature, rows=rows)
+                # [rank, view, row, D] -> [view, rank, row, D]: the global
+                # [h1; h2] in the single-device row order.
+                world = dist.get_world_size(group)
+                b = proj.shape[0] // 2
+                proj = all_gather_rows(proj, group).reshape(
+                    world, 2, b, -1).transpose(0, 1).reshape(2 * world * b,
+                                                             -1)
+                rows = rank_rows(world * b, group)
+            loss, logits_ab, labels = ntxent_loss(
+                proj, temperature=cfg.temperature, rows=rows)
         optimizer_step(state, loss, group)
         correct = (logits_ab.detach().argmax(dim=1) == labels).sum()
         n = labels.shape[0]
@@ -141,11 +144,15 @@ def make_contrastive_step(cfg: ContrastiveConfig, group=None):
     update = make_contrastive_update(cfg, group)
 
     def step(state: TrainState, gen: torch.Generator, x_u8):
-        x = torch.as_tensor(x_u8).to(state.net.device)
-        batch = x.shape[0] * (1 if group is None
-                              else dist.get_world_size(group))
-        return update(state, two_views(cfg, gen, x, batch,
-                                       rank_rows(batch, group)))
+        with span("cutdet.train.step"):
+            with span("cutdet.train.upload"):
+                x = torch.as_tensor(x_u8).to(state.net.device)
+            batch = x.shape[0] * (1 if group is None
+                                  else dist.get_world_size(group))
+            with span("cutdet.train.augment"):
+                views = two_views(cfg, gen, x, batch,
+                                  rank_rows(batch, group))
+            return update(state, views)
 
     return step
 

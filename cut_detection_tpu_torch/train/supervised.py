@@ -49,6 +49,7 @@ from cut_detection_tpu_torch.models.assembly import GluedNet
 from cut_detection_tpu_torch.ops.preprocess import to_unit
 from cut_detection_tpu_torch.train.losses import cross_entropy_sum
 from cut_detection_tpu_torch.utils.device import resolve_device
+from cut_detection_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -148,17 +149,20 @@ def optimizer_step(state: TrainState, loss: torch.Tensor,
                    group=None) -> None:
     """Backward, the gradients SUM-all-reduced over ``group``, the
     optimizer, then the BN statistics the forward recorded (once, however
-    often the forward ran)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if group is not None:
-        from cut_detection_tpu_torch.parallel.distributed import (
-            all_reduce_grads,
-        )
+    often the forward ran): the ``cutdet.train.backward`` and
+    ``cutdet.train.update`` spans of every training step."""
+    with span("cutdet.train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if group is not None:
+            from cut_detection_tpu_torch.parallel.distributed import (
+                all_reduce_grads,
+            )
 
-        all_reduce_grads(state.net.parameters(), group)
-    state.optimizer.step()
-    state.net.apply_bn_stats()
+            all_reduce_grads(state.net.parameters(), group)
+    with span("cutdet.train.update"):
+        state.optimizer.step()
+        state.net.apply_bn_stats()
     state.step += 1
 
 
@@ -179,23 +183,27 @@ def make_train_step(cfg: TrainConfig, group=None):
         return net.linear(feats)
 
     def step(state: TrainState, x_u8, y):
-        net = state.net
-        net.train()
-        net.set_process_group(group)
-        x = to_unit(_to(x_u8, net.device))
-        y = _to(y, net.device, torch.long)
-        logits = forward(net, x)
-        loss = cross_entropy_sum(logits, y)
-        optimizer_step(state, loss, group)
-        correct = (logits.detach().argmax(dim=1) == y).sum()
-        n = int(y.shape[0])
-        if group is None:
-            return state, {"loss": loss.detach(), "correct": correct,
-                           "n": n}
-        sums = torch.stack([loss.detach().double(), correct.double()])
-        dist.all_reduce(sums, group=group)
-        return state, {"loss": sums[0].float(), "correct": sums[1].long(),
-                       "n": n * dist.get_world_size(group)}
+        with span("cutdet.train.step"):
+            net = state.net
+            net.train()
+            net.set_process_group(group)
+            with span("cutdet.train.upload"):
+                x = to_unit(_to(x_u8, net.device))
+                y = _to(y, net.device, torch.long)
+            with span("cutdet.train.forward"):
+                logits = forward(net, x)
+                loss = cross_entropy_sum(logits, y)
+            optimizer_step(state, loss, group)
+            correct = (logits.detach().argmax(dim=1) == y).sum()
+            n = int(y.shape[0])
+            if group is None:
+                return state, {"loss": loss.detach(), "correct": correct,
+                               "n": n}
+            sums = torch.stack([loss.detach().double(), correct.double()])
+            dist.all_reduce(sums, group=group)
+            return state, {"loss": sums[0].float(),
+                           "correct": sums[1].long(),
+                           "n": n * dist.get_world_size(group)}
 
     return step
 

@@ -1,7 +1,33 @@
-"""Throughput metering of the classify loop, and the profiler hook.
+"""Throughput metering of the classify loop, the profiler hook, and the
+program's spans.
 
 ``ThroughputMeter`` is a copy of ``cut_detection_tpu/utils/profiling.py:15``;
 ``maybe_trace`` is the counterpart of its ``:60-84`` on ``torch.profiler``.
+
+``span(name)`` marks a phase of the program on the profiler's clock: a
+``torch.profiler.record_function`` span while a torch profiler records
+(``maybe_trace``, or any other), a shared no-op otherwise.  The spans,
+``cutdet.<layer>.<phase>``:
+
+- ``cutdet.classify.batch``: one iteration of ``pipeline.classify_batches``'
+  loop (where the source runs out, one more holds only the ``next`` that
+  found its end); inside it
+  ``cutdet.classify.next`` (taking the next ``(batch, valid)`` from the
+  source: decode, or the wait on it), ``cutdet.classify.upload`` (the
+  host-to-device copy; under a mesh, inside the step, each shard's),
+  ``cutdet.classify.step`` (enqueueing the step's kernels) and
+  ``cutdet.classify.store`` (the writes into the score buffers, and their
+  doubling);
+- ``cutdet.classify.fetch``: the loop's one fetch of the scores;
+- ``cutdet.train.step``: one call of a training step
+  (``train.supervised.make_train_step``,
+  ``train.contrastive.make_contrastive_step``); inside it
+  ``cutdet.train.upload`` (the frames, and labels, to the device, and
+  their ``/ 255``), ``cutdet.train.augment`` (SimCLR's two views),
+  ``cutdet.train.forward`` (the forward and the loss),
+  ``cutdet.train.backward`` (``zero_grad``, the backward and, under a
+  process group, the gradients' all-reduce) and ``cutdet.train.update``
+  (the optimizer's step and the BN statistics).
 """
 
 from __future__ import annotations
@@ -10,6 +36,20 @@ import contextlib
 import logging
 import os
 import time
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context marking ``name`` on the profiler's clock while a torch
+    profiler records, else a shared no-op (a ``record_function`` with no
+    profiler running still costs some 10-20 times this check)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class ThroughputMeter:
